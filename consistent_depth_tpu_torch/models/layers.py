@@ -1,6 +1,5 @@
-"""Layers of the hourglass: the port of the subset of
-``consistent_depth_tpu/models/layers.py`` that the MannequinChallenge
-network uses.
+"""Layers: the port of the subset of ``consistent_depth_tpu/models/layers.py``
+that the MannequinChallenge network and the FlowNet family use.
 
 - :class:`SameConv2d`: ``nn.Conv2d`` whose stride-1, dilation-1,
   same-padding, odd k >= 3 convs run through the hand-written CUDA kernel
@@ -11,6 +10,8 @@ network uses.
   (align_corners=True) are PyTorch's own modules, whose semantics the JAX
   package reproduces (``TorchBatchNorm``, ``avg_pool_2x``,
   ``upsample_bilinear_2x``).
+- :func:`resize_bilinear`: ``F.interpolate(mode="bilinear")``, which the
+  JAX package reproduces with interpolation matmuls.
 - :func:`init_parameters`: flax's ``lecun_normal`` initialisation (a
   normal truncated at two standard deviations, scaled by the fan-in) from an
   explicit generator.
@@ -22,6 +23,7 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops import s2d_conv
 
@@ -53,23 +55,37 @@ class SameConv2d(nn.Conv2d):
         return y.permute(0, 3, 1, 2)
 
 
+def resize_bilinear(x: torch.Tensor, out_hw,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor to ``out_hw`` (no antialiasing)."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                         align_corners=align_corners)
+
+
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """flax ``lecun_normal`` for a conv weight (O, I, kh, kw)."""
+    """flax ``lecun_normal`` for a conv weight (O, I, kh, kw). Applied to a
+    transposed-conv weight (I, O, kh, kw) it scales by kh * kw * O, the
+    fan-in flax's ``ConvTranspose(transpose_kernel=True)`` uses."""
     fan_in = w.shape[1] * w.shape[2] * w.shape[3]
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    # inverse-CDF sampling of the normal truncated to [-2, 2] std: one
+    # uniform draw per element, the same values on every torch version
+    # (nn.init.trunc_normal_ rejection-samples, ~10x slower on FlowNet2's
+    # 162 M parameters)
+    edge = math.erf(2.0 / math.sqrt(2.0))
     with torch.no_grad():
-        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                              generator=generator)
+        w.uniform_(-edge, edge, generator=generator)
+        w.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
 
 
 def init_parameters(net: nn.Module, generator: torch.Generator) -> None:
     """Initialise every parameter and buffer of ``net`` as the JAX package
-    does (``ConvParams``/``TorchBatchNorm``): conv kernels lecun-normal,
-    conv biases 0, BN scale 1 and bias 0, running mean 0 and variance 1.
-    Modules are visited in registration order, so a seed fixes the
-    result."""
+    does (``ConvParams``/``TorchBatchNorm``, flax ``ConvTranspose``): conv
+    and transposed-conv kernels lecun-normal, their biases 0, BN scale 1
+    and bias 0, running mean 0 and variance 1. Modules are visited in
+    registration order, so a seed fixes the result."""
     for m in net.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)

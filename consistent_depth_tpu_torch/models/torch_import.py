@@ -10,6 +10,16 @@ layout, with the same rules as the JAX package's ``variables_to_state_dict``:
     scale / bias           ->  weight / bias
     mean / var             ->  running_mean / running_var
     seq_3 / list_0_1 / convs_1_3  ->  seq.3.list.0.1.convs.1.3
+
+That key rule cannot spell FlowNet names: ``flownets_1 / conv3_1_0``
+would become ``flownets.1.conv3.1.0``, not the module's
+``flownets_1.conv3_1.0``. So for FlowNet the direction is reversed:
+:func:`state_dict_for_module` starts from the port module's own keys and
+maps each to its flax path with the JAX importer's rule (``_flax_path`` of
+``consistent_depth_tpu/models/torch_import.py``), which is unambiguous;
+:func:`checkpoint_for_module` does the same for a ``.pth``, so a released
+checkpoint (``flownets_1.conv3_1.0.weight``) and one the JAX package wrote
+(``flownets.1.conv3.1.0.weight``) both load.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 _STRIP_PREFIXES = ("module.", "model.")
 
@@ -79,3 +90,63 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
                 k = k[len(pre):]
         out[k] = torch.as_tensor(v)
     return out
+
+
+def flax_path(torch_key: str) -> Tuple[str, ...]:
+    """'flownets.1.conv3.1.0.weight' and 'flownets_1.conv3_1.0.weight' ->
+    ('flownets_1', 'conv3_1_0', 'weight'): alpha tokens grouped with the
+    index tokens after them, the JAX importer's rule."""
+    *tokens, leaf = torch_key.split(".")
+    groups = []
+    for tok in tokens:
+        if tok.isdigit() and groups:
+            groups[-1] += "_" + tok
+        else:
+            groups.append(tok)
+    return tuple(groups) + (leaf,)
+
+
+def _jax_leaf(params: Mapping[str, Any], path: Tuple[str, ...]) -> np.ndarray:
+    *mods, leaf = path
+    node = params
+    for m in mods:
+        node = node.get(m) if isinstance(node, Mapping) else None
+    name = {"weight": "kernel", "bias": "bias"}.get(leaf)
+    if not isinstance(node, Mapping) or name not in node:
+        raise KeyError(f"no JAX leaf for {'/'.join(path)}")
+    value = np.asarray(node[name])
+    if name == "kernel":
+        # conv HWIO -> OIHW; transposed conv (kh, kw, O, I) -> (I, O, kh, kw)
+        value = value.transpose(3, 2, 0, 1)
+    return value
+
+
+def state_dict_for_module(variables: Mapping[str, Any],
+                          module: nn.Module) -> Dict[str, np.ndarray]:
+    """The JAX package's variables (numpy leaves) -> a state_dict with
+    exactly ``module``'s keys (numpy values) for a module of convs and
+    transposed convs: each key's kernel or bias is found at its flax path.
+    Raises KeyError on a key with no leaf and ValueError on a shape
+    mismatch."""
+    params = variables.get("params", {})
+    out: Dict[str, np.ndarray] = {}
+    for key, t in module.state_dict().items():
+        value = _jax_leaf(params, flax_path(key))
+        if tuple(value.shape) != tuple(t.shape):
+            raise ValueError(f"{key}: JAX leaf {value.shape}, module "
+                             f"{tuple(t.shape)}")
+        out[key] = value
+    return out
+
+
+def checkpoint_for_module(state_dict: Mapping[str, torch.Tensor],
+                          module: nn.Module) -> Dict[str, torch.Tensor]:
+    """Re-key a checkpoint's ``state_dict`` to ``module``'s own keys by
+    flax path, so that either spelling of a key loads. Keys the module
+    lacks are ignored; a module key the checkpoint lacks raises KeyError."""
+    by_path = {flax_path(k): v for k, v in state_dict.items()}
+    missing = [k for k in module.state_dict() if flax_path(k) not in by_path]
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} of the module's "
+                       f"keys, e.g. {missing[:4]}")
+    return {k: by_path[flax_path(k)] for k in module.state_dict()}
