@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100 (sm_90a).
 
-Drives the port's two paths with random weights from a seed, each at its
-model's full width, and checks every hand-written kernel on them against
-its plain PyTorch version:
+Drives the port's three paths with random weights from a seed, each at
+its model's full width, and checks every hand-written kernel on them
+against its plain PyTorch version:
 
 - eval-mode MannequinChallenge depth serving through
   ``consistent_depth_tpu_torch.serving.DepthServer`` on 224x384 frames
@@ -11,7 +11,12 @@ its plain PyTorch version:
 - full FlowNet2 optical flow (C->S->S + SD + fusion) in f32 through
   ``consistent_depth_tpu_torch.flow.runner.TorchFlowBackend`` at the flow
   stage's 448x1024 feed, then the flow stage's masks and visualisation
-  (kernel: ``csrc/correlation.cu``).
+  (kernel: ``csrc/correlation.cu``);
+- the ``mc`` fine-tune train step through
+  ``consistent_depth_tpu_torch.training.TrainingEngine.train_step`` on the
+  reference demo workload of ``bench.py::make_workload`` (244 frames at
+  224x384, the hierarchical2 pair set of 715 pairs, batch 4 pairs), in
+  bf16 and f32 (kernels: ``csrc/same_conv.cu``, forward and grad-input).
 
 Phases, each printing one JSON line:
 
@@ -34,7 +39,20 @@ Phases, each printing one JSON line:
    64x128 pair, ms per pair; then ``consistent_flow_masks`` and
    ``flow_to_image_torch`` on those flows against the CPU, and the flow
    stage's mask and visualisation passes (``pipeline.flow_stage.Flow``) on
-   the card, whose masks must match the CPU's.
+   the card, whose masks must match the CPU's;
+7. grad-input kernel: for every (cotangent, weight) shape that one bf16
+   train step sends through ``same_conv_grad_input``, the kernel against
+   ``same_conv_grad_input_reference`` in f32 (TF32 off) and bf16, and both
+   its time and cuDNN's dgrad time from CUDA events;
+8. train: the workload resident on the card; 68 forward and 67 grad-input
+   launches per step; a finite loss and a finite gradient for every
+   parameter (non-zero except the confidence head's, which the loss does
+   not read); the f32 step with the kernels against the same step with
+   their plain versions; the f32 step on the card against the CPU at
+   64x96 (loss, BN running stats, and gradients with eval-mode BN); the
+   bf16 step's loss against the f32 step's; the NaN-skip; ms per step in
+   bf16 and f32 (CUDA events and host clock), the peak memory, and the
+   device idle share and kernel split from ``torch.profiler``.
 
 Then the card's name and power limit as nvidia-smi prints them, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -51,6 +69,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from itertools import islice
 
 import numpy as np
 
@@ -96,6 +115,40 @@ TOL_FLOW = 1e-4
 # colours by one level where floor() meets a rounding difference
 TOL_MASK_FRACTION = 1e-3
 TOL_COLOUR_LEVELS = 1.0
+# train path: bench.py::make_workload's reference demo workload, the mc
+# settings of the reference demo (B0.1_R1.0, Adam, LR 4e-4, BS 4 pairs)
+TRAIN_FRAMES = 244
+TRAIN_PAIRS = 715           # hierarchical2 over 244 frames
+TRAIN_BATCH = 4
+TRAIN_LR = 4e-4
+WARMUP_STEPS = 3
+TIMED_STEPS = 20
+PROFILED_STEPS = 5
+# a random init emits extreme log-depths and exp() then blows up the 1/z
+# gradients; a pretrained net predicts O(1) depths. Scale the prediction
+# head as tests/test_bf16.py does.
+TAME_HEAD = 0.05
+# kernel against plain, f32 step: the loss; the gradients (relative L2
+# over all parameters), whose band covers train-mode BN dividing by the
+# batch sigma at each of ~70 layers at random init, which amplifies
+# summation-order differences (the port's own f32 gradients differ from
+# its f64 gradients by 2.4e-3 relative on the CPU at 32x48)
+TOL_STEP_LOSS = 1e-5
+TOL_STEP_GRADS = 1e-2
+# card against CPU, f32, two pairs of the same recipe's data at 64x96: the
+# loss and the BN running stats after the step (max |d| / max |ref| per
+# tensor), and the gradients with eval-mode BN (relative L2), where no batch
+# statistics amplify anything (measured 6.1e-7). A 64x96 crop of the
+# 224x384 data would keep intrinsics whose principal point lies outside
+# the crop; its f32 gradients differ from f64 by 1.5e-5 on the CPU alone.
+TRAIN_SMALL_SIZE = (64, 96)
+TOL_CPU_LOSS = 1e-5
+TOL_CPU_STATS = 1e-4
+TOL_CPU_GRADS = 1e-5
+# bf16 step against f32 step: relative loss difference (tests/test_bf16.py)
+TOL_TRAIN_BF16 = 0.05
+# the parameters the loss does not read: the confidence head
+NO_GRAD_PARAMS = ("uncertainty_layer.",)
 
 
 def require(cond, what: str) -> None:
@@ -261,6 +314,455 @@ def drive_flow_stage(image_io, Flow, flows, frames, work_dir):
     return masks, panels, warped
 
 
+def make_train_workload(training, size, n_frames=TRAIN_FRAMES):
+    """bench.py::make_workload's data, from the same seeded recipe: frames
+    U[0, 1), the hierarchical2 pair set, flows N(0, 2^2), masks U > 0.2,
+    intrinsics (1.2 W, 1.2 W, W / 2, H / 2), identity extrinsics."""
+    fr, fs = training.frame_range, training.frame_sampling
+    rng_frames = fr.FrameRange(fr.OptionalSet(), num_frames=n_frames)
+    opts = [fs.SamplePairsOptions(fs.SamplePairsMode.HIERARCHICAL2)]
+    pairs = sorted(fs.SamplePairs.to_one_way(
+        fs.SamplePairs.sample(opts, rng_frames, two_way=True)))
+    H, W = size
+    rng = np.random.default_rng(0)
+    P = len(pairs)
+    pair_arr = np.array(pairs, np.int32)
+    return {
+        "frames": rng.random((n_frames, H, W, 3), np.float32),
+        "pair_slots": pair_arr,
+        "pair_ids": pair_arr,
+        "flows": (rng.standard_normal((P, 2, H, W, 2)) * 2).astype(
+            np.float32),
+        "masks": (rng.random((P, 2, H, W)) > 0.2).astype(np.float32),
+        "intrinsics": np.tile(
+            np.array([W * 1.2, W * 1.2, W / 2, H / 2], np.float32), (P, 2, 1)),
+        "extrinsics": np.tile(
+            np.concatenate([np.eye(3, dtype=np.float32),
+                            np.zeros((3, 1), np.float32)], 1), (P, 2, 1, 1)),
+    }
+
+
+def check_grad_input(torch, s2d_conv, ctshape, wshape, seed):
+    """One backward conv class: the grad-input kernel's errors in f32 and
+    bf16, and its time beside cuDNN's dgrad."""
+    N, H, W, Co = ctshape
+    k, _, Ci, _ = wshape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    # the strides of the train step: the cotangent an NHWC view of a
+    # channels_last tensor, w an HWIO view of an OIHW channels_last weight
+    ct = torch.randn((N, Co, H, W), generator=g, device="cuda").to(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    w = (torch.randn((Co, Ci, k, k), generator=g, device="cuda")
+         / math.sqrt(k * k * Ci)).to(
+             memory_format=torch.channels_last).permute(2, 3, 1, 0)
+    row = {"ct": list(ctshape), "w": list(wshape)}
+    ok = True
+    for name, dt, tol in (("f32", torch.float32, TOL_F32),
+                          ("bf16", torch.bfloat16, TOL_BF16)):
+        ctd, wd = ct.to(dt), w.to(dt)
+        ref = s2d_conv.same_conv_grad_input_reference(ctd.float(), wd.float())
+        got = s2d_conv.same_conv_grad_input(ctd, wd).float()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        rel = err / max(ref.abs().max().item(), 1e-30)
+        ct_nchw, w_oihw = ctd.permute(0, 3, 1, 2), wd.permute(3, 2, 0, 1)
+
+        def dgrad():
+            return torch.nn.grad.conv2d_input(
+                (N, Ci, H, W), w_oihw, ct_nchw, padding=(k - 1) // 2)
+
+        def kernel():
+            return s2d_conv.same_conv_grad_input(ctd, wd)
+
+        t = [cuda_ms(torch, dgrad), cuda_ms(torch, kernel),
+             cuda_ms(torch, kernel), cuda_ms(torch, dgrad)]
+        row[name] = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
+                     "ms": (t[1] + t[2]) / 2, "cudnn_dgrad_ms": (t[0] + t[3]) / 2}
+        ok = ok and math.isfinite(rel) and rel <= tol
+    row["pass"] = ok
+    return row
+
+
+def rel_l2(a, b) -> float:
+    """Relative L2 distance of two {name: tensor} maps over all names."""
+    num = sum(float((a[k] - b[k]).double().square().sum()) for k in b)
+    den = sum(float(b[k].double().square().sum()) for k in b)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def grads_of(engine):
+    return {k: p.grad.detach().double().cpu()
+            for k, p in engine.params.items()}
+
+
+def trace_summary(prof, window: str, ranges):
+    """From a ``torch.profiler`` trace: the device idle share over the
+    profiled range ``window`` (one minus the union of the kernels'
+    intervals inside it over its length; None when the trace holds no
+    kernels), the device time by kernel name, and for each named range in
+    ``ranges`` the device time of the kernels that ran inside the
+    device-side spans the profiler draws for it. Those spans place the
+    kernels of a range whatever launched them: the conv kernels go out
+    through ctypes, not through a torch op."""
+    from bisect import bisect_left
+
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    win = [e for e in events
+           if e.name == window and e.device_type == DeviceType.CPU]
+    # device activity only: kernels, copies and sets, not the device-side
+    # spans the profiler draws for the named ranges
+    labels = {e.name for e in events if e.device_type == DeviceType.CPU
+              and getattr(e, "is_user_annotation", False)}
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device = [e for e in on_device
+              if not getattr(e, "is_user_annotation", False)
+              and e.name not in labels and e.name != window
+              and not e.name.startswith("Optimizer.")]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in device)
+    if not win or not kernels:
+        return None, {}, {}
+    lo, hi = win[0].time_range.start, win[0].time_range.end
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in kernels:
+        s, e = max(s, lo), min(e, hi)
+        if e <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    by_name = Counter()
+    for e in device:
+        by_name[e.name] += e.time_range.end - e.time_range.start
+    starts = [s for s, _ in kernels]
+    in_ranges = dict.fromkeys(ranges, 0.0)
+    for e in on_device:
+        if e.name not in in_ranges:
+            continue
+        lo_r, hi_r = e.time_range.start, e.time_range.end
+        i = max(bisect_left(starts, lo_r) - 1, 0)
+        while i < len(kernels) and kernels[i][0] < hi_r:
+            in_ranges[e.name] += max(
+                0.0, min(kernels[i][1], hi_r) - max(kernels[i][0], lo_r))
+            i += 1
+    return 1.0 - busy / (hi - lo), by_name, in_ranges
+
+
+def drive_train(torch, engine, data, batches, s2d_conv):
+    """The train path's timed run: warm-up steps, then the timed steps
+    with the launch counts zeroed just before and read just after."""
+    for idx, valid in batches[:WARMUP_STEPS]:
+        engine.train_step(data, idx, valid)
+    timed = batches[WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    skipped = []
+    s2d_conv.launches = s2d_conv.grad_input_launches = 0
+    engine.flag_wait_s = 0.0
+    t0 = time.perf_counter()
+    start.record()
+    for idx, valid in timed:
+        skipped.append(engine.train_step(data, idx, valid)["skipped_nan"])
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    return {
+        "steps": len(timed),
+        "ms_per_step": start.elapsed_time(end) / len(timed),
+        "host_ms_per_step": 1e3 * host_s / len(timed),
+        # the host blocked in the NaN-skip flag read, the step's one sync;
+        # the rest of the host's time is spent issuing work
+        "flag_wait_ms_per_step": 1e3 * engine.flag_wait_s / len(timed),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "skipped": int(sum(bool(s) for s in skipped)),
+        "same_conv_launches": launches[0],
+        "grad_input_launches": launches[1],
+    }
+
+
+def profile_train(torch, engine, data, batches, s2d_conv):
+    """``torch.profiler`` over PROFILED_STEPS steps: the device idle share,
+    the device time of the forward + loss, the backward, the optimizer,
+    the conv kernel's two directions, and the top kernels by name. The
+    conv wrappers are wrapped in named ranges for the window only (the
+    forward and the grad-input run the same kernel template)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def named(label, fn):
+        def wrapper(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    orig = (s2d_conv._forward, s2d_conv.same_conv_grad_input, engine._loss)
+    s2d_conv._forward = named("same_conv_forward", orig[0])
+    s2d_conv.same_conv_grad_input = named("same_conv_grad_input", orig[1])
+    engine._loss = named("forward_and_loss", orig[2])
+    steps = batches[-PROFILED_STEPS:]
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("train_window"):
+                for idx, valid in steps:
+                    engine.train_step(data, idx, valid)
+                torch.cuda.synchronize()
+    finally:
+        s2d_conv._forward, s2d_conv.same_conv_grad_input = orig[:2]
+        del engine._loss
+    opt_label = f"Optimizer.step#{type(engine.optimizer).__name__}.step"
+    idle, by_name, in_ranges = trace_summary(
+        prof, "train_window", ("forward_and_loss", "same_conv_forward",
+                               "same_conv_grad_input", opt_label))
+    ranges = {k: v / 1e3 / len(steps) for k, v in in_ranges.items()}
+    total = sum(by_name.values()) / 1e3 / len(steps)
+    # the backward (and the NaN check after it) is what the forward, the
+    # loss and the optimizer leave: autograd runs it in its own thread
+    ranges["backward_and_nan_check"] = (
+        total - ranges["forward_and_loss"] - ranges[opt_label])
+    top = [[name[:120], t / 1e3 / len(steps)]
+           for name, t in by_name.most_common(25)]
+    return {"steps": len(steps), "device_idle_share": idle,
+            "device_ms_per_step": total, "ranges_ms_per_step": ranges,
+            "top_kernels_ms_per_step": top}
+
+
+def train_path(torch, smi, per_forward, training, s2d_conv,
+               create_depth_model, LossWeights):
+    """Phases 7 and 8 on the reference demo workload. Returns the
+    grad-input rows, their per-step sums and the timed runs."""
+    # -- 7. grad-input kernel against plain, per backward conv class ------
+    t_data = time.perf_counter()
+    workload = make_train_workload(training, SIZE)
+    n_pairs = len(workload["pair_ids"])
+    require(n_pairs == TRAIN_PAIRS,
+            f"hierarchical2 over {TRAIN_FRAMES} frames gave {n_pairs} pairs")
+    init = create_depth_model("mc", checkpoint="", seed=0, device="cuda")
+    with torch.no_grad():
+        init.net.pred_layer.weight.mul_(TAME_HEAD)
+        init.net.pred_layer.bias.mul_(TAME_HEAD)
+    init_sd = {k: v.clone() for k, v in init.net.state_dict().items()}
+    del init
+
+    def make_engine(precision, device="cuda"):
+        model = create_depth_model("mc", checkpoint="", device=device)
+        model.net.load_state_dict(init_sd)
+        return training.TrainingEngine(
+            model, training.create_optimizer("Adam", TRAIN_LR),
+            LossWeights(lambda_view_baseline=0.1, lambda_reprojection=1.0),
+            precision=precision)
+
+    eng16 = make_engine("bf16")
+    data = eng16.put_data(workload)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t_data
+    batches = list(islice(training.PairBatchIterator(
+        n_pairs, TRAIN_BATCH, seed=0).epoch(0),
+        1 + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS))
+    idx0, valid0 = batches[0]
+
+    # one bf16 step: the grad-input classes, the launches, the health
+    gx_classes = Counter()
+    orig_gx = s2d_conv.same_conv_grad_input
+
+    def recording_gx(ct, w):
+        gx_classes[(tuple(ct.shape), tuple(w.shape))] += 1
+        return orig_gx(ct, w)
+
+    s2d_conv.same_conv_grad_input = recording_gx
+    s2d_conv.launches = s2d_conv.grad_input_launches = 0
+    try:
+        first16 = eng16.train_step(data, idx0, valid0)
+        torch.cuda.synchronize()
+    finally:
+        s2d_conv.same_conv_grad_input = orig_gx
+    first_launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    first_grads = grads_of(eng16)
+    loss16 = float(first16["loss"])
+
+    gx_rows = []
+    for i, ((cts, ws), count) in enumerate(sorted(gx_classes.items())):
+        row = check_grad_input(torch, s2d_conv, cts, ws, seed=100 + i)
+        row["per_step"] = count
+        gx_rows.append(row)
+        emit({"phase": "grad_input", **row, "nvidia_smi": smi})
+    gx_totals = {dt: {key: sum(r[dt][key] * r["per_step"] for r in gx_rows)
+                      for key in ("ms", "cudnn_dgrad_ms")}
+                 for dt in ("f32", "bf16")}
+    emit({"phase": "grad_inputs", "classes": len(gx_rows),
+          "launches_per_step": sum(gx_classes.values()),
+          "expected_per_step": per_forward - 1,
+          "per_step_ms": gx_totals, "nvidia_smi": smi,
+          "pass": all(r["pass"] for r in gx_rows)})
+    require(all(r["pass"] for r in gx_rows),
+            "grad-input kernel disagrees with plain")
+
+    # -- 8. the train path ------------------------------------------------
+    nonzero_ok = all(bool(g.abs().max() > 0) for k, g in first_grads.items()
+                     if not k.startswith(NO_GRAD_PARAMS))
+    finite_ok = all(bool(torch.isfinite(g).all())
+                    for g in first_grads.values())
+    no_grad_zero = all(bool(g.abs().max() == 0)
+                       for k, g in first_grads.items()
+                       if k.startswith(NO_GRAD_PARAMS))
+
+    # the f32 step with the kernels against the same step with their plain
+    # versions: same weights, same batch
+    eng32 = make_engine("f32")
+    first32 = eng32.train_step(data, idx0, valid0)
+    grads32 = grads_of(eng32)
+    loss32 = float(first32["loss"])
+    plain = make_engine("f32")
+    orig_conv = (s2d_conv.same_conv, s2d_conv.same_conv_grad_input)
+    s2d_conv.same_conv = s2d_conv.same_conv_reference
+    s2d_conv.same_conv_grad_input = s2d_conv.same_conv_grad_input_reference
+    try:
+        plain_out = plain.train_step(data, idx0, valid0)
+        plain_loss = float(plain_out["loss"])
+    finally:
+        s2d_conv.same_conv, s2d_conv.same_conv_grad_input = orig_conv
+    plain_loss_err = abs(loss32 - plain_loss) / abs(plain_loss)
+    plain_grad_err = rel_l2(grads32, grads_of(plain))
+    del plain
+
+    # the card against the CPU, f32, two pairs at 64x96
+    small = {k: v[:2] if k != "frames" else v for k, v in
+             make_train_workload(training, TRAIN_SMALL_SIZE).items()}
+    sides = {}
+    for device in ("cuda", "cpu"):
+        eng = make_engine("f32", device)
+        d = eng.put_data(small)
+        idx, valid = eng._indices([0, 1], [1.0, 1.0])
+        loss, _, _ = eng._loss(training.gather_batch(d, idx), valid,
+                               train=False)
+        loss.backward()
+        eval_grads, eval_loss = grads_of(eng), loss.item()
+        out = eng.train_step(d, [0, 1], [1.0, 1.0])
+        stats = {k: v.double().cpu()
+                 for k, v in eng.model.net.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        sides[device] = (float(out["loss"]), stats, eval_grads, eval_loss)
+    cpu_loss_err = abs(sides["cuda"][0] - sides["cpu"][0]) / abs(
+        sides["cpu"][0])
+    cpu_stats_err = max(
+        float((sides["cuda"][1][k] - v).abs().max() / v.abs().max())
+        for k, v in sides["cpu"][1].items())
+    cpu_eval_loss_err = abs(sides["cuda"][3] - sides["cpu"][3]) / abs(
+        sides["cpu"][3])
+    cpu_grad_err = rel_l2(sides["cuda"][2], sides["cpu"][2])
+    bf16_loss_err = abs(loss16 - loss32) / abs(loss32)
+
+    # NaN-skip on the card: params and Adam's state stay bitwise
+    bad = {k: data[k][:TRAIN_BATCH] for k in data if k != "frames"}
+    bad["frames"] = data["frames"]
+    bad["flows"] = bad["flows"].clone()
+    bad["flows"][0] = float("nan")
+    params_before = {k: p.detach().clone() for k, p in eng16.params.items()}
+    opt_before = {k: {n: v.clone() if torch.is_tensor(v) else v
+                      for n, v in st.items()}
+                  for k, st in eng16.optimizer.state_dict()["state"].items()}
+    bn_before = eng16.model.net.seq[1].running_mean.clone()
+    step_before = eng16.step
+    nan_out = eng16.train_step(bad, np.arange(TRAIN_BATCH), np.ones(
+        TRAIN_BATCH, np.float32))
+    opt_after = eng16.optimizer.state_dict()["state"]
+    nan_skip = {
+        "skipped": bool(nan_out["skipped_nan"]),
+        "params_unchanged": all(torch.equal(p.detach(), params_before[k])
+                                for k, p in eng16.params.items()),
+        "optimizer_unchanged": opt_after.keys() == opt_before.keys() and all(
+            all(torch.equal(v, opt_before[k][n]) if torch.is_tensor(v)
+                else v == opt_before[k][n] for n, v in st.items())
+            for k, st in opt_after.items()),
+        "bn_stats_moved": not torch.equal(
+            eng16.model.net.seq[1].running_mean, bn_before),
+        "step_advanced": eng16.step == step_before + 1,
+    }
+    emit({
+        "phase": "train_checks", "frames": TRAIN_FRAMES, "pairs": n_pairs,
+        "size": list(SIZE), "batch_pairs": TRAIN_BATCH,
+        "resident_gib": sum(v.numel() * v.element_size()
+                            for v in data.values()) / 2 ** 30,
+        "workload_seconds": data_s,
+        "first_step_launches": list(first_launches),
+        "expected_launches": [per_forward, per_forward - 1],
+        "loss_bf16": loss16, "loss_f32": loss32,
+        "skipped_first": [bool(first16["skipped_nan"]),
+                          bool(first32["skipped_nan"])],
+        "grads_finite": finite_ok, "grads_nonzero": nonzero_ok,
+        "confidence_head_grad_zero": no_grad_zero,
+        "kernel_vs_plain_loss_rel": plain_loss_err,
+        "tol_loss": TOL_STEP_LOSS,
+        "kernel_vs_plain_grads_rel_l2": plain_grad_err,
+        "tol_grads": TOL_STEP_GRADS,
+        "card_vs_cpu_loss_rel": cpu_loss_err, "tol_cpu_loss": TOL_CPU_LOSS,
+        "card_vs_cpu_bn_stats_rel": cpu_stats_err,
+        "tol_cpu_stats": TOL_CPU_STATS,
+        "card_vs_cpu_eval_loss_rel": cpu_eval_loss_err,
+        "card_vs_cpu_eval_grads_rel_l2": cpu_grad_err,
+        "tol_cpu_grads": TOL_CPU_GRADS,
+        "bf16_vs_f32_loss_rel": bf16_loss_err, "tol_bf16": TOL_TRAIN_BF16,
+        "nan_skip": nan_skip, "nvidia_smi": smi,
+    })
+    require(first_launches == (per_forward, per_forward - 1),
+            f"one train step made {first_launches} same_conv / grad-input "
+            f"launches, expected {(per_forward, per_forward - 1)}")
+    require(math.isfinite(loss16) and math.isfinite(loss32),
+            "non-finite train loss")
+    require(not bool(first16["skipped_nan"])
+            and not bool(first32["skipped_nan"]), "first train step skipped")
+    require(finite_ok and nonzero_ok, "a parameter got a non-finite or zero "
+            "gradient")
+    require(plain_loss_err <= TOL_STEP_LOSS,
+            f"f32 step loss, kernels vs plain {plain_loss_err}")
+    require(plain_grad_err <= TOL_STEP_GRADS,
+            f"f32 step gradients, kernels vs plain {plain_grad_err}")
+    require(cpu_loss_err <= TOL_CPU_LOSS, f"train loss card vs CPU "
+            f"{cpu_loss_err}")
+    require(cpu_stats_err <= TOL_CPU_STATS, f"BN stats card vs CPU "
+            f"{cpu_stats_err}")
+    require(cpu_eval_loss_err <= TOL_CPU_LOSS and cpu_grad_err
+            <= TOL_CPU_GRADS, f"eval-mode loss/gradients card vs CPU "
+            f"{cpu_eval_loss_err} / {cpu_grad_err}")
+    require(bf16_loss_err <= TOL_TRAIN_BF16,
+            f"bf16 step loss vs f32 {bf16_loss_err}")
+    require(all(nan_skip.values()), f"NaN-skip on the card {nan_skip}")
+
+    # the main path: timed train steps in bf16 (production) and f32
+    timing = {}
+    for name, eng in (("bf16", eng16), ("f32", eng32)):
+        run = drive_train(torch, eng, data, batches[1:], s2d_conv)
+        run["profile"] = profile_train(torch, eng, data, batches[1:],
+                                       s2d_conv)
+        # the profiler slows the host, so its idle share is an upper bound;
+        # the profiled device time over the unprofiled step is the estimate
+        run["device_idle_share_unprofiled"] = (
+            1.0 - run["profile"]["device_ms_per_step"] / run["ms_per_step"])
+        timing[name] = run
+        emit({"phase": "train", "precision": name, **run,
+              "workload": f"{TRAIN_FRAMES} frames {SIZE[0]}x{SIZE[1]}, "
+                          f"{n_pairs} pairs, batch {TRAIN_BATCH}",
+              "nvidia_smi": smi})
+        require(run["skipped"] == 0, f"{name}: {run['skipped']} timed steps "
+                "skipped")
+        require(run["same_conv_launches"] == per_forward * run["steps"]
+                and run["grad_input_launches"]
+                == (per_forward - 1) * run["steps"],
+                f"{name}: {run['same_conv_launches']} / "
+                f"{run['grad_input_launches']} launches in "
+                f"{run['steps']} steps")
+    return gx_rows, gx_totals, timing
+
+
 def main() -> int:
     try:
         import torch
@@ -273,6 +775,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     try:
+        from consistent_depth_tpu_torch import training
         from consistent_depth_tpu_torch.flow import correlation as corr
         from consistent_depth_tpu_torch.flow.backends import image_io
         from consistent_depth_tpu_torch.flow.runner import TorchFlowBackend
@@ -284,6 +787,7 @@ def main() -> int:
             consistent_flow_masks)
         from consistent_depth_tpu_torch.ops.flow_viz import (
             flow_to_image_torch)
+        from consistent_depth_tpu_torch.ops.losses import LossWeights
         from consistent_depth_tpu_torch.pipeline.flow_stage import Flow
         from consistent_depth_tpu_torch.serving import (
             DepthServer, ServeConfig)
@@ -513,12 +1017,19 @@ def main() -> int:
     require(len(panels) == 2 and len(warped) == 4,
             f"stage wrote {len(panels)} panels, {len(warped)} warped frames")
 
+    # -- 7-8. the train path ---------------------------------------------
+    del backend
+    torch.cuda.empty_cache()
+    gx_rows, gx_totals, timing = train_path(
+        torch, smi, per_forward, training, s2d_conv, create_depth_model,
+        LossWeights)
+
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "same_conv", "route": "cuda",
         "source": "consistent_depth_tpu_torch/csrc/same_conv.cu",
         "replaces": "consistent_depth_tpu/ops/s2d_conv.py:168",
-        "launches": launches,
+        "launches": timing["bf16"]["same_conv_launches"],
         "max_abs_err": max(r["f32"]["max_abs_err"] for r in rows),
         "ms": totals["bf16"]["ms"], "plain_ms": totals["bf16"]["cudnn_ms"],
     }, {
@@ -528,6 +1039,14 @@ def main() -> int:
         "launches": flow_launches,
         "max_abs_err": max(r["max_abs_err"] for r in corr_rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+    }, {
+        "name": "same_conv_grad_input", "route": "cuda",
+        "source": "consistent_depth_tpu_torch/csrc/same_conv.cu",
+        "replaces": "consistent_depth_tpu/models/layers.py:321",
+        "launches": timing["bf16"]["grad_input_launches"],
+        "max_abs_err": max(r["f32"]["max_abs_err"] for r in gx_rows),
+        "ms": gx_totals["bf16"]["ms"],
+        "plain_ms": gx_totals["bf16"]["cudnn_dgrad_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

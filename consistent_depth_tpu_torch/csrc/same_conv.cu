@@ -26,8 +26,19 @@
 //     words across the warp (conflict-free within each half-warp).
 // Tensor-core (wgmma) tiles fed by TMA are the later step for speed.
 //
+// The conv's grad-input (same_conv_grad_input) is the same kernel, as the
+// TPU package's custom VJP does it (consistent_depth_tpu/models/layers.py,
+// _conv_pallas_bwd): dx[n,y,x,i] = sum_{r,c,o} ct[n,y+p-r,x+p-c,o] w[r,c,i,o]
+// is the same-padding conv of the cotangent with the flipped,
+// channel-swapped weight. The kernel reads its weight through int64
+// strides, so the flip and the swap cost no copy: the entry passes a
+// pointer to w[k-1,k-1,0,0] with strides (-ws_r, -ws_c, ws_o, ws_i) and
+// exchanges Ci and Co. A template flag for the flip would double the
+// instantiations (and the build time) for the same arithmetic.
+//
 // The kernel allocates nothing, launches on the caller's stream and does
-// not synchronise. The C entry returns cudaGetLastError() after the launch.
+// not synchronise. The C entries return cudaGetLastError() after the
+// launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -245,6 +256,34 @@ int same_conv_forward(const void* x, const void* w, const void* bias,
   if (dtype == 1)
     return launch_t<__nv_bfloat16>(K, x, w, bias, out, N, H, W, Ci, Co, xs,
                                    ws, s);
+  return cudaErrorInvalidValue;
+}
+
+// Grad-input of same_conv_forward. ct: (N, H, W, Co) with element strides
+// cs_{n,h,w,c}; w: the forward's (K, K, Ci, Co) weight with element strides
+// ws_{r,c,i,o}; dx: (N, H, W, Ci) contiguous. dtype as above.
+int same_conv_grad_input(const void* ct, const void* w, void* dx, int dtype,
+                         int N, int H, int W, int Ci, int Co, int K,
+                         int64_t cs_n, int64_t cs_h, int64_t cs_w,
+                         int64_t cs_c, int64_t ws_r, int64_t ws_c,
+                         int64_t ws_i, int64_t ws_o, void* stream) {
+  const int64_t cs[4] = {cs_n, cs_h, cs_w, cs_c};
+  // the flipped, channel-swapped weight as a strided view of w: tap (r, c)
+  // reads w[K-1-r, K-1-c], input channel o reads w[..., o], output
+  // channel i reads w[..., i, :]
+  const int64_t wf[4] = {-ws_r, -ws_c, ws_o, ws_i};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N <= 0 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 || N > 65535 ||
+      K <= 0)
+    return cudaErrorInvalidValue;
+  const int64_t last = (K - 1) * ws_r + (K - 1) * ws_c;
+  if (dtype == 0)
+    return launch_t<float>(K, ct, static_cast<const float*>(w) + last,
+                           nullptr, dx, N, H, W, Co, Ci, cs, wf, s);
+  if (dtype == 1)
+    return launch_t<__nv_bfloat16>(
+        K, ct, static_cast<const __nv_bfloat16*>(w) + last, nullptr, dx, N,
+        H, W, Co, Ci, cs, wf, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,13 +1,16 @@
-"""Depth-model abstraction: the port of ``consistent_depth_tpu/models/base.py``
-(eval-mode forward only in this slice).
+"""Depth-model abstraction: the port of ``consistent_depth_tpu/models/base.py``.
 
-A backbone adapter owns an ``nn.Module`` on an explicit device, in an
-explicit compute dtype, channels_last in memory, and exposes
+A backbone adapter owns an ``nn.Module`` on an explicit device, with
+parameters in an explicit dtype, channels_last in memory, and exposes
 
-    apply(images, scales=None) -> depth
+    apply(images, scales=None, train=False) -> depth
 
 with images (B, N, H, W, 3) BGR in [0, 1] and depth (B, N, H, W) f32
-(depth, not disparity).
+(depth, not disparity). The forward computes in ``compute_dtype``, which is
+the parameter dtype unless set apart from it: serving casts the whole
+network to bf16, while training keeps f32 parameters and BN running stats
+and computes in bf16, as the JAX package's production mode does
+(``layers.py::set_compute_dtype``).
 
 Weights come from a ``.pth`` checkpoint in the torch state_dict layout or,
 for ``checkpoint=""``, from a seeded initialisation. Nothing is ever
@@ -54,15 +57,18 @@ class DepthModel:
         self.net = net.eval()
         self.device = torch.device("cpu")
         self.dtype = torch.float32
+        self.compute_dtype = torch.float32
         self.to(device, dtype)
 
     def to(self, device, dtype: torch.dtype) -> "DepthModel":
-        """Move the network to ``device`` and cast it to the compute
-        ``dtype`` (in place); returns self."""
+        """Move the network to ``device`` and cast its parameters and
+        buffers to ``dtype``, which becomes the compute dtype too (in
+        place); returns self."""
         self.net.to(device=device, dtype=dtype,
                     memory_format=torch.channels_last)
         self.device = torch.device(device)
         self.dtype = dtype
+        self.compute_dtype = dtype
         return self
 
     # -- provided by subclasses -------------------------------------------
@@ -70,13 +76,20 @@ class DepthModel:
         raise NotImplementedError
 
     def estimate_depth(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, N, H, W, 3) in the compute dtype -> (B, N, H, W) depth."""
+        """(B, N, H, W, 3) in the compute dtype -> (B, N, H, W) depth in
+        the compute dtype."""
         raise NotImplementedError
 
     # -- shared API -------------------------------------------------------
     def apply(self, images: torch.Tensor,
-              scales: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Eval-mode forward incl. the optional per-frame scale transform.
+              scales: Optional[torch.Tensor] = None,
+              train: bool = False) -> torch.Tensor:
+        """Forward incl. the optional per-frame scale transform. With
+        ``train`` the batch norms normalise by the batch statistics and
+        update their running stats (torch semantics: biased variance to
+        normalise, unbiased into the running stat, momentum 0.1), as the
+        JAX package's ``apply(..., train=True)``; otherwise they use the
+        running stats.
 
         Args:
             images: (B, N, H, W, 3) BGR [0, 1], on the model's device
@@ -84,7 +97,9 @@ class DepthModel:
         Returns:
             (B, N, H, W) f32 depth
         """
-        depth = self.estimate_depth(images.to(self.dtype)).float()
+        if self.net.training != train:
+            self.net.train(train)
+        depth = self.estimate_depth(images.to(self.compute_dtype)).float()
         if scales is not None:
             depth = depth * scales.reshape(
                 scales.shape[0], scales.shape[1], 1, 1)

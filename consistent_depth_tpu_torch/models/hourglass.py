@@ -134,8 +134,8 @@ class HourglassModel(nn.Module):
         # both heads in one conv of two output channels, as the JAX package
         # computes them (one kernel launch instead of two)
         unc = self.uncertainty_layer[0]
-        w = torch.cat([self.pred_layer.weight, unc.weight])
-        b = torch.cat([self.pred_layer.bias, unc.bias])
+        w = torch.cat([self.pred_layer.weight, unc.weight]).to(feats.dtype)
+        b = torch.cat([self.pred_layer.bias, unc.bias]).to(feats.dtype)
         heads = s2d_conv.same_conv(
             feats.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0), b)
         heads = heads.permute(0, 3, 1, 2)

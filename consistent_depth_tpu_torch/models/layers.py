@@ -5,11 +5,14 @@ that the MannequinChallenge network and the FlowNet family use.
   same-padding, odd k >= 3 convs run through the hand-written CUDA kernel
   (:func:`..ops.s2d_conv.same_conv`). Every such conv is routed, whatever its
   resolution: the JAX package's space-to-depth threshold is an MXU trade
-  that has no meaning on Hopper. The 1x1 convs stay on ``F.conv2d``.
+  that has no meaning on Hopper. The 1x1 convs stay on ``F.conv2d``. Convs
+  compute in the dtype of their input, so f32 parameters serve a bf16
+  forward (the JAX package's compute dtype, ``layers.py::conv_compute``).
 - Batch norm, 2x average pooling and the 2x bilinear upsample
   (align_corners=True) are PyTorch's own modules, whose semantics the JAX
   package reproduces (``TorchBatchNorm``, ``avg_pool_2x``,
-  ``upsample_bilinear_2x``).
+  ``upsample_bilinear_2x``). Batch norm takes a bf16 input beside f32
+  running stats: it computes the statistics in f32 and returns bf16.
 - :func:`resize_bilinear`: ``F.interpolate(mode="bilinear")``, which the
   JAX package reproduces with interpolation matmuls.
 - :func:`init_parameters`: flax's ``lecun_normal`` initialisation (a
@@ -48,10 +51,14 @@ class SameConv2d(nn.Conv2d):
             and self.padding_mode == "zeros")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the conv computes in the activations' dtype: f32 parameters meet
+        # bf16 activations as a bf16 copy, as the JAX package's compute
+        # dtype casts its kernels (no copy when the dtypes agree)
+        w = self.weight.to(x.dtype)
+        b = self.bias.to(x.dtype) if self.bias is not None else None
         if not self.routed:
-            return super().forward(x)
-        y = s2d_conv.same_conv(
-            x.permute(0, 2, 3, 1), self.weight.permute(2, 3, 1, 0), self.bias)
+            return self._conv_forward(x, w, b)
+        y = s2d_conv.same_conv(x.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0), b)
         return y.permute(0, 3, 1, 2)
 
 

@@ -108,6 +108,9 @@ def library() -> ctypes.CDLL:
         lib.same_conv_forward.argtypes = (
             [p, p, p, p] + [i32] * 7 + [i64] * 8 + [p])
         lib.same_conv_forward.restype = i32
+        lib.same_conv_grad_input.argtypes = (
+            [p, p, p] + [i32] * 7 + [i64] * 8 + [p])
+        lib.same_conv_grad_input.restype = i32
         lib.correlation_forward.argtypes = (
             [p, p, p] + [i32] * 6 + [i64] * 8 + [p])
         lib.correlation_forward.restype = i32

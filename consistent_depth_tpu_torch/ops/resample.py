@@ -1,5 +1,5 @@
-"""Border-clamped bilinear resampling, forward only: the port of the
-forward subset of ``consistent_depth_tpu/ops/resample.py``.
+"""Border-clamped bilinear resampling: the port of
+``consistent_depth_tpu/ops/resample.py``.
 
 Semantics are torch ``grid_sample``'s with ``align_corners=False`` and
 ``padding_mode='border'``, which the JAX package reproduces: source
@@ -7,7 +7,14 @@ coordinates are clipped to ``[0, size - 1]`` and the four corners blended
 in f32; NaN coordinates give NaN. The arithmetic is that of
 ``bilinear_sample_pixels_reference`` (equal in value to the JAX package's
 fast path with its splat backward off), so the two packages agree to the
-last bits. The custom backward comes with the training slice.
+last bits.
+
+The backward is PyTorch's autograd of that arithmetic: a scatter-add of
+the cotangent into the four corners for the data, and the corner
+differences for the positions, which are zero outside ``[0, size - 1]``
+and at exactly ``size - 1`` (where both corners are the last pixel), as in
+the JAX package's custom VJP. Its packed gather and matmul-splat backward
+are TPU gather/scatter strategies and have no counterpart here.
 
 Layout is the JAX package's NHWC, with the batch dimension written out in
 place of ``jax.vmap``: data ``(B, H, W, C)``, coordinates ``(B, ...)``.

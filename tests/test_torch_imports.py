@@ -1,9 +1,10 @@
 """The port stands without JAX, and its chip smoke script refuses to run
 without a CUDA card.
 
-Of the JAX package the port imports only three host modules that load
-neither jax nor OpenCV (and their package ``__init__``s): the flow
-helpers, the image I/O and the colour wheel."""
+Of the JAX package the port imports only host modules that load neither
+jax nor OpenCV (and their package ``__init__``s): the flow helpers, the
+image I/O, the colour wheel, and for training the pair-batch iterator and
+the frame range and pair sampling."""
 
 import json
 import os
@@ -15,7 +16,7 @@ import sys
 import consistent_depth_tpu_torch
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the JAX package's modules the port may load: the three host helpers, the
+# the JAX package's modules the port may load: the host helpers, the
 # packages above them, and what those import themselves
 JAX_FREE_HELPERS = [
     "consistent_depth_tpu", "consistent_depth_tpu.flow",
@@ -23,6 +24,9 @@ JAX_FREE_HELPERS = [
     "consistent_depth_tpu.io._native", "consistent_depth_tpu.io.colmap_io",
     "consistent_depth_tpu.io.image_io", "consistent_depth_tpu.io.metadata_io",
     "consistent_depth_tpu.ops", "consistent_depth_tpu.ops.flow_viz",
+    "consistent_depth_tpu.data", "consistent_depth_tpu.data.video_dataset",
+    "consistent_depth_tpu.utils", "consistent_depth_tpu.utils.frame_range",
+    "consistent_depth_tpu.utils.frame_sampling",
 ]
 
 
@@ -39,7 +43,9 @@ def test_port_imports_without_jax():
     assert "consistent_depth_tpu_torch.ops.s2d_conv" in mods
     for m in ("flow.correlation", "flow.flownet", "flow.runner",
               "flow.backends", "ops.resample", "ops.geometry",
-              "ops.consistency", "ops.flow_viz", "pipeline.flow_stage"):
+              "ops.consistency", "ops.flow_viz", "pipeline.flow_stage",
+              "ops.losses", "training", "training.engine",
+              "training.optimizer"):
         assert "consistent_depth_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
