@@ -7,7 +7,8 @@ against its plain PyTorch version:
 
 - eval-mode MannequinChallenge depth serving through
   ``consistent_depth_tpu_torch.serving.DepthServer`` on 224x384 frames
-  (kernel: ``csrc/same_conv.cu``);
+  (kernels: ``csrc/same_conv_tc.cu`` for bf16 on the tensor cores,
+  ``csrc/same_conv.cu`` for f32 and for the stem's 3-channel input);
 - full FlowNet2 optical flow (C->S->S + SD + fusion) in f32 through
   ``consistent_depth_tpu_torch.flow.runner.TorchFlowBackend`` at the flow
   stage's 448x1024 feed, then the flow stage's masks and visualisation
@@ -16,19 +17,24 @@ against its plain PyTorch version:
   ``consistent_depth_tpu_torch.training.TrainingEngine.train_step`` on the
   reference demo workload of ``bench.py::make_workload`` (244 frames at
   224x384, the hierarchical2 pair set of 715 pairs, batch 4 pairs), in
-  bf16 and f32 (kernels: ``csrc/same_conv.cu``, forward and grad-input).
+  bf16 and f32 (the same two kernels, forward and grad-input).
 
 Phases, each printing one JSON line:
 
 1. device: a CUDA card of compute capability 9.0, its name and power limit;
 2. build: compile the CUDA sources of the checkout into ``build/cuda/``;
 3. kernels: for every conv shape the main path launches (recorded from one
-   batch-8 forward at 224x384), the kernel against ``same_conv_reference``
-   in f32 (TF32 off) and bf16, and both times from CUDA events;
+   batch-8 forward at 224x384), the kernel of the plan's route against
+   ``same_conv_reference`` in f32 (TF32 off) and bf16, both times from
+   CUDA events, the class's GFLOP, its bound (the larger of its FLOPs over
+   the peak and its bytes over 3.35 TB/s), TFLOP/s and share of the bound;
+   then, untimed, ragged cases (1x7x13 k=11 64->16, 2x14x24 32->64) and
+   every class of the train phase's 64x96 check, in both directions;
 4. serve: two interleaved 224x384 videos of 32 frames plus three 230x380
    frames (the 240x384 bucket) at batch 8 in bf16: shapes, finite depths,
-   the kernel's launch count, agreement with an f32 server, frames/s; and
-   the f32 path on the card against the same model on the CPU;
+   the kernels' launch counts by route, agreement with an f32 server,
+   frames/s; and the f32 path on the card against the same model on the
+   CPU;
 5. correlation: the kernel against ``correlation_reference`` in f32 at the
    shape recorded from one FlowNet2 forward at 448x1024 (1x56x128x256),
    at 2x56x128x256, at 1x72x128x256 (the 576x1024 feed), at a ragged
@@ -41,14 +47,16 @@ Phases, each printing one JSON line:
    stage's mask and visualisation passes (``pipeline.flow_stage.Flow``) on
    the card, whose masks must match the CPU's;
 7. grad-input kernel: for every (cotangent, weight) shape that one bf16
-   train step sends through ``same_conv_grad_input``, the kernel against
-   ``same_conv_grad_input_reference`` in f32 (TF32 off) and bf16, and both
-   its time and cuDNN's dgrad time from CUDA events;
+   train step sends through ``same_conv_grad_input``, the kernel of the
+   plan's route against ``same_conv_grad_input_reference`` in f32 (TF32
+   off) and bf16, its time, the plain version's and cuDNN's dgrad's from
+   CUDA events, and the numbers of phase 3;
 8. train: the workload resident on the card; 68 forward and 67 grad-input
-   launches per step; a finite loss and a finite gradient for every
-   parameter (non-zero except the confidence head's, which the loss does
-   not read); the f32 step with the kernels against the same step with
-   their plain versions; the f32 step on the card against the CPU at
+   launches per step, by the routes the plan gives; a finite loss and a
+   finite gradient for every parameter (non-zero except the confidence
+   head's, which the loss does not read); the f32 step with the kernels
+   against the same step with their plain versions; the f32 step on the
+   card against the CPU at
    64x96 (loss, BN running stats, and gradients with eval-mode BN); the
    bf16 step's loss against the f32 step's; the NaN-skip; ms per step in
    bf16 and f32 (CUDA events and host clock), the peak memory, and the
@@ -85,6 +93,11 @@ BATCH = 8
 # an f32 reference on the same bf16-rounded inputs
 TOL_F32 = 1e-4
 TOL_BF16 = 2 ** -7
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
+# the tensor cores, f32 on the FMA pipes, and the HBM rate; each kernel's
+# bound is the larger of its FLOPs over the peak and its bytes over the rate
+PEAK_TFLOPS = {"bf16": 989.0, "f32": 67.0}
+HBM_BYTES_PER_S = 3.35e12
 # bf16 server against f32 server: relative L2 error of the depth, the band
 # of the JAX package's bf16 test (tests/test_bf16.py)
 TOL_SERVE_BF16 = 0.05
@@ -182,9 +195,10 @@ def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def record_conv_classes(torch, s2d_conv, model):
-    """The (x shape, w shape) of every same_conv call of one batch-8
-    forward at 224x384, with its count."""
+def record_conv_classes(torch, s2d_conv, model, batch=BATCH, size=SIZE):
+    """The (x shape, w shape, has bias) of every same_conv call of one
+    forward of ``batch`` frames at ``size`` (batch 8 at 224x384 by
+    default), with its count."""
     seen = Counter()
     orig = s2d_conv.same_conv
 
@@ -195,47 +209,180 @@ def record_conv_classes(torch, s2d_conv, model):
     s2d_conv.same_conv = recording
     try:
         with torch.inference_mode():
-            model.apply(torch.rand((BATCH, 1, *SIZE, 3), device="cuda"))
+            model.apply(torch.rand((batch, 1, *size, 3), device="cuda"))
     finally:
         s2d_conv.same_conv = orig
     return seen
 
 
-def check_kernel(torch, s2d_conv, xshape, wshape, has_bias, seed):
-    """One conv class: errors in f32 and bf16, kernel and cuDNN times."""
-    N, H, W, Ci = xshape
-    k, _, _, Co = wshape
+def conv_bound(direction, N, H, W, k, Ci, Co, elem_bytes, peak_tflops):
+    """GFLOP of one conv call, 2 N H W k^2 Ci Co, and the least time the
+    card could take for it: the larger of the FLOPs over the peak and the
+    bytes (each input read once, each output written once) over the
+    memory rate. Returns (gflop, bound_ms, bound_by)."""
+    flop = 2 * N * H * W * k * k * Ci * Co
+    # forward: x, w, bias in, out; grad-input: ct, w in, dx out
+    elems = N * H * W * (Ci + Co) + k * k * Ci * Co + (
+        Co if direction == "forward" else 0)
+    t_ops = flop / (peak_tflops * 1e12)
+    t_bytes = elems * elem_bytes / HBM_BYTES_PER_S
+    return (flop / 1e9, 1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
+               timed=True):
+    """One conv class in both directions' sense: ``direction`` "forward"
+    checks same_conv on x = ``ashape`` (N, H, W, Ci), "grad_input" checks
+    same_conv_grad_input on the cotangent ``ashape`` (N, H, W, Co); w is
+    ``wshape`` (k, k, Ci, Co). In f32 (TF32 off) and bf16: the route the
+    plan gives, the error against the plain version on the same rounded
+    inputs, and when ``timed`` the times of the kernel, the plain version
+    and (grad-input) cuDNN's dgrad from CUDA events, beside the class's
+    bound."""
+    N, H, W, C = ashape
+    k, _, Ci, Co = wshape
     g = torch.Generator(device="cuda").manual_seed(seed)
-    # activations and weights with the strides the main path gives them:
-    # x an NHWC view of channels_last, w an HWIO view of OIHW channels_last
-    x = torch.randn((N, Ci, H, W), generator=g, device="cuda").to(
+    # the strides of the main path: activations and cotangents NHWC views
+    # of channels_last tensors, w an HWIO view of an OIHW channels_last
+    # weight
+    a = torch.randn((N, C, H, W), generator=g, device="cuda").to(
         memory_format=torch.channels_last).permute(0, 2, 3, 1)
     w = (torch.randn((Co, Ci, k, k), generator=g, device="cuda")
          / math.sqrt(k * k * Ci)).to(
              memory_format=torch.channels_last).permute(2, 3, 1, 0)
     b = (0.1 * torch.randn((Co,), generator=g, device="cuda")
          if has_bias else None)
-    row = {"x": list(xshape), "w": list(wshape)}
+    grad = direction == "grad_input"
+    row = {"direction": direction, "ct" if grad else "x": list(ashape),
+           "w": list(wshape)}
     ok = True
     for name, dt, tol in (("f32", torch.float32, TOL_F32),
                           ("bf16", torch.bfloat16, TOL_BF16)):
-        xd, wd = x.to(dt), w.to(dt)
+        ad, wd = a.to(dt), w.to(dt)
         bd = b.to(dt) if b is not None else None
-        ref = s2d_conv.same_conv_reference(
-            xd.float(), wd.float(), bd.float() if bd is not None else None)
-        got = s2d_conv.same_conv(xd, wd, bd).float()
+        if grad:
+            def kernel():
+                return s2d_conv.same_conv_grad_input(ad, wd)
+
+            def plain():
+                return s2d_conv.same_conv_grad_input_reference(ad, wd)
+
+            def library():
+                return torch.nn.grad.conv2d_input(
+                    (N, Ci, H, W), wd.permute(3, 2, 0, 1),
+                    ad.permute(0, 3, 1, 2), padding=(k - 1) // 2)
+
+            ref = s2d_conv.same_conv_grad_input_reference(ad.float(),
+                                                          wd.float())
+        else:
+            def kernel():
+                return s2d_conv.same_conv(ad, wd, bd)
+
+            def plain():
+                return s2d_conv.same_conv_reference(ad, wd, bd)
+
+            library = plain    # the plain version is one cuDNN call
+            ref = s2d_conv.same_conv_reference(
+                ad.float(), wd.float(), bd.float() if bd is not None else None)
+        got = kernel().float()
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         rel = err / max(ref.abs().max().item(), 1e-30)
-        t = [cuda_ms(torch, lambda: s2d_conv.same_conv_reference(xd, wd, bd)),
-             cuda_ms(torch, lambda: s2d_conv.same_conv(xd, wd, bd)),
-             cuda_ms(torch, lambda: s2d_conv.same_conv(xd, wd, bd)),
-             cuda_ms(torch, lambda: s2d_conv.same_conv_reference(xd, wd, bd))]
-        row[name] = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
-                     "ms": (t[1] + t[2]) / 2, "cudnn_ms": (t[0] + t[3]) / 2}
+        route, tile_h, split = s2d_conv._plan(dt, N, H, W, Ci, Co, k,
+                                              grad_input=grad)
+        gflop, bound_ms, bound_by = conv_bound(
+            direction, N, H, W, k, Ci, Co, ad.element_size(),
+            PEAK_TFLOPS[name])
+        r = {"route": route, "tile_h": tile_h, "split": split,
+             "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        if timed:
+            t = [cuda_ms(torch, plain), cuda_ms(torch, kernel),
+                 cuda_ms(torch, kernel), cuda_ms(torch, plain)]
+            r["ms"] = (t[1] + t[2]) / 2
+            r["plain_ms"] = (t[0] + t[3]) / 2
+            r["library_ms"] = (r["plain_ms"] if library is plain else
+                               (cuda_ms(torch, library)
+                                + cuda_ms(torch, library)) / 2)
+            r["tflops"] = gflop / r["ms"]
+            r["bound_share"] = bound_ms / r["ms"]
+        row[name] = r
         ok = ok and math.isfinite(rel) and rel <= tol
+    row["gflop"] = gflop
     row["pass"] = ok
     return row
+
+
+def conv_totals(rows, count_key):
+    """Per-dtype sums over classes times their counts: ms, plain, library
+    and bound ms, GFLOP, the achieved TFLOP/s and the share of the bound."""
+    totals = {}
+    for dt in ("f32", "bf16"):
+        t = {key: sum(r[dt][key] * r[count_key] for r in rows)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        t["gflop"] = sum(r["gflop"] * r[count_key] for r in rows)
+        t["tflops"] = t["gflop"] / t["ms"]
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        totals[dt] = t
+    return totals
+
+
+def conv_entry(name, source, replaces, launches, rows, count_key, dt,
+               route):
+    """One entry of the ``kernels`` line: the classes of ``rows`` that the
+    plan gives ``route`` in ``dt``, their times and bounds summed with
+    their counts (ms, the plain version's, the library call's: cuDNN's
+    fprop for the forward, whose plain version it is, and its dgrad for the
+    grad-input), the largest error against plain."""
+    mine = [r for r in rows if r[dt]["route"] == route]
+    by = Counter()
+    for r in mine:
+        by[r[dt]["bound_by"]] += r[dt]["bound_ms"] * r[count_key]
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max(r[dt]["max_abs_err"] for r in mine)}
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        entry[key] = sum(r[dt][key] * r[count_key] for r in mine)
+    entry["bound_by"] = by.most_common(1)[0][0]
+    return entry
+
+
+def expected_routes(s2d_conv, classes, dtype, grad_input):
+    """{route: launches} that ``classes`` ({(x or ct shape, w shape, ...):
+    count}) should make in ``dtype`` by the plan."""
+    routes = Counter()
+    for key, count in classes.items():
+        (N, H, W, _), (k, _, Ci, Co) = key[0], key[1]
+        routes[s2d_conv._plan(dtype, N, H, W, Ci, Co, k,
+                              grad_input=grad_input)[0]] += count
+    return routes
+
+
+def check_added_cases(torch, s2d_conv, create_depth_model):
+    """The ragged cases and every forward and grad-input class of the train
+    phase's card-against-CPU check (4 frames at 64x96), in f32 and bf16
+    against plain with the bands of phases 3 and 7 (untimed)."""
+    model = create_depth_model("mc", checkpoint="", device="cuda")
+    classes = record_conv_classes(torch, s2d_conv, model, 4,
+                                  TRAIN_SMALL_SIZE)
+    del model
+    cases = [(("ragged_1x7x13", (1, 7, 13, 64), (11, 11, 64, 16), True))]
+    cases += [(f"ragged_2x14x24_k{k}", (2, 14, 24, 32), (k, k, 32, 64), True)
+              for k in (3, 7)]
+    cases += [(f"train_64x96_{i}", xs, ws, hb)
+              for i, (xs, ws, hb) in enumerate(sorted(classes))]
+    rows, seed = [], 1000
+    for name, xs, ws, hb in cases:
+        k, _, Ci, Co = ws
+        for direction in ("forward", "grad_input"):
+            ashape = xs if direction == "forward" else (*xs[:3], Co)
+            row = check_conv(torch, s2d_conv, direction, ashape, ws, hb,
+                             seed, timed=False)
+            seed += 1
+            row["case"] = name
+            rows.append(row)
+    return rows
 
 
 def check_correlation(torch, corr, name, shape, max_disp, stride, seed):
@@ -258,10 +405,20 @@ def check_correlation(torch, corr, name, shape, max_disp, stride, seed):
          cuda_ms(torch, lambda: corr.correlation(f1, f2, max_disp, stride)),
          cuda_ms(torch, lambda: corr.correlation_reference(
              f1, f2, max_disp, stride))]
+    # the bound: 2 C FLOPs per output element in f32 on the FMA pipes, and
+    # f1, f2 read once and the volume written once
+    planes = got.shape[-1]
+    flop = 2 * B * H * W * planes * C
+    t_ops = flop / (PEAK_TFLOPS["f32"] * 1e12)
+    t_bytes = (2 * B * H * W * C + got.numel()) * 4 / HBM_BYTES_PER_S
+    ms = (t[1] + t[2]) / 2
     return {"case": name, "shape": list(shape), "max_displacement": max_disp,
             "stride": stride, "out": list(got.shape), "max_abs_err": err,
             "max_rel_err": rel, "tol_rel": TOL_CORR,
-            "ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2,
+            "ms": ms, "plain_ms": (t[0] + t[3]) / 2, "gflop": flop / 1e9,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_share": 1e3 * max(t_ops, t_bytes) / ms,
             "pass": math.isfinite(rel) and rel <= TOL_CORR}
 
 
@@ -340,47 +497,6 @@ def make_train_workload(training, size, n_frames=TRAIN_FRAMES):
             np.concatenate([np.eye(3, dtype=np.float32),
                             np.zeros((3, 1), np.float32)], 1), (P, 2, 1, 1)),
     }
-
-
-def check_grad_input(torch, s2d_conv, ctshape, wshape, seed):
-    """One backward conv class: the grad-input kernel's errors in f32 and
-    bf16, and its time beside cuDNN's dgrad."""
-    N, H, W, Co = ctshape
-    k, _, Ci, _ = wshape
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    # the strides of the train step: the cotangent an NHWC view of a
-    # channels_last tensor, w an HWIO view of an OIHW channels_last weight
-    ct = torch.randn((N, Co, H, W), generator=g, device="cuda").to(
-        memory_format=torch.channels_last).permute(0, 2, 3, 1)
-    w = (torch.randn((Co, Ci, k, k), generator=g, device="cuda")
-         / math.sqrt(k * k * Ci)).to(
-             memory_format=torch.channels_last).permute(2, 3, 1, 0)
-    row = {"ct": list(ctshape), "w": list(wshape)}
-    ok = True
-    for name, dt, tol in (("f32", torch.float32, TOL_F32),
-                          ("bf16", torch.bfloat16, TOL_BF16)):
-        ctd, wd = ct.to(dt), w.to(dt)
-        ref = s2d_conv.same_conv_grad_input_reference(ctd.float(), wd.float())
-        got = s2d_conv.same_conv_grad_input(ctd, wd).float()
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        rel = err / max(ref.abs().max().item(), 1e-30)
-        ct_nchw, w_oihw = ctd.permute(0, 3, 1, 2), wd.permute(3, 2, 0, 1)
-
-        def dgrad():
-            return torch.nn.grad.conv2d_input(
-                (N, Ci, H, W), w_oihw, ct_nchw, padding=(k - 1) // 2)
-
-        def kernel():
-            return s2d_conv.same_conv_grad_input(ctd, wd)
-
-        t = [cuda_ms(torch, dgrad), cuda_ms(torch, kernel),
-             cuda_ms(torch, kernel), cuda_ms(torch, dgrad)]
-        row[name] = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
-                     "ms": (t[1] + t[2]) / 2, "cudnn_dgrad_ms": (t[0] + t[3]) / 2}
-        ok = ok and math.isfinite(rel) and rel <= tol
-    row["pass"] = ok
-    return row
 
 
 def rel_l2(a, b) -> float:
@@ -465,7 +581,7 @@ def drive_train(torch, engine, data, batches, s2d_conv):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     skipped = []
-    s2d_conv.launches = s2d_conv.grad_input_launches = 0
+    s2d_conv.reset_counts()
     engine.flag_wait_s = 0.0
     t0 = time.perf_counter()
     start.record()
@@ -486,6 +602,7 @@ def drive_train(torch, engine, data, batches, s2d_conv):
         "skipped": int(sum(bool(s) for s in skipped)),
         "same_conv_launches": launches[0],
         "grad_input_launches": launches[1],
+        "route_counts": dict(s2d_conv.route_counts),
     }
 
 
@@ -536,10 +653,12 @@ def profile_train(torch, engine, data, batches, s2d_conv):
             "top_kernels_ms_per_step": top}
 
 
-def train_path(torch, smi, per_forward, training, s2d_conv,
+def train_path(torch, smi, classes, training, s2d_conv,
                create_depth_model, LossWeights):
-    """Phases 7 and 8 on the reference demo workload. Returns the
-    grad-input rows, their per-step sums and the timed runs."""
+    """Phases 7 and 8 on the reference demo workload; ``classes`` are the
+    forward's conv classes of phase 3. Returns the grad-input rows, their
+    per-step sums and the timed runs."""
+    per_forward = sum(classes.values())
     # -- 7. grad-input kernel against plain, per backward conv class ------
     t_data = time.perf_counter()
     workload = make_train_workload(training, SIZE)
@@ -579,25 +698,25 @@ def train_path(torch, smi, per_forward, training, s2d_conv,
         return orig_gx(ct, w)
 
     s2d_conv.same_conv_grad_input = recording_gx
-    s2d_conv.launches = s2d_conv.grad_input_launches = 0
+    s2d_conv.reset_counts()
     try:
         first16 = eng16.train_step(data, idx0, valid0)
         torch.cuda.synchronize()
     finally:
         s2d_conv.same_conv_grad_input = orig_gx
     first_launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    first_routes = dict(s2d_conv.route_counts)
     first_grads = grads_of(eng16)
     loss16 = float(first16["loss"])
 
     gx_rows = []
     for i, ((cts, ws), count) in enumerate(sorted(gx_classes.items())):
-        row = check_grad_input(torch, s2d_conv, cts, ws, seed=100 + i)
+        row = check_conv(torch, s2d_conv, "grad_input", cts, ws, False,
+                         seed=100 + i)
         row["per_step"] = count
         gx_rows.append(row)
         emit({"phase": "grad_input", **row, "nvidia_smi": smi})
-    gx_totals = {dt: {key: sum(r[dt][key] * r["per_step"] for r in gx_rows)
-                      for key in ("ms", "cudnn_dgrad_ms")}
-                 for dt in ("f32", "bf16")}
+    gx_totals = conv_totals(gx_rows, "per_step")
     emit({"phase": "grad_inputs", "classes": len(gx_rows),
           "launches_per_step": sum(gx_classes.values()),
           "expected_per_step": per_forward - 1,
@@ -605,6 +724,14 @@ def train_path(torch, smi, per_forward, training, s2d_conv,
           "pass": all(r["pass"] for r in gx_rows)})
     require(all(r["pass"] for r in gx_rows),
             "grad-input kernel disagrees with plain")
+    # the routes each precision's step must take, by the plan
+    routes = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        fwd = expected_routes(s2d_conv, classes, dt, False)
+        bwd = expected_routes(s2d_conv, gx_classes, dt, True)
+        routes[name] = {f"forward_{r}": fwd[r] for r in ("tc", "fma")}
+        routes[name].update(
+            {f"grad_input_{r}": bwd[r] for r in ("tc", "fma")})
 
     # -- 8. the train path ------------------------------------------------
     nonzero_ok = all(bool(g.abs().max() > 0) for k, g in first_grads.items()
@@ -695,6 +822,8 @@ def train_path(torch, smi, per_forward, training, s2d_conv,
         "workload_seconds": data_s,
         "first_step_launches": list(first_launches),
         "expected_launches": [per_forward, per_forward - 1],
+        "first_step_routes": first_routes,
+        "expected_routes": routes["bf16"],
         "loss_bf16": loss16, "loss_f32": loss32,
         "skipped_first": [bool(first16["skipped_nan"]),
                           bool(first32["skipped_nan"])],
@@ -716,6 +845,9 @@ def train_path(torch, smi, per_forward, training, s2d_conv,
     require(first_launches == (per_forward, per_forward - 1),
             f"one train step made {first_launches} same_conv / grad-input "
             f"launches, expected {(per_forward, per_forward - 1)}")
+    require(all(first_routes[k] == v for k, v in routes["bf16"].items()),
+            f"one bf16 train step took routes {first_routes}, expected "
+            f"{routes['bf16']}")
     require(math.isfinite(loss16) and math.isfinite(loss32),
             "non-finite train loss")
     require(not bool(first16["skipped_nan"])
@@ -760,6 +892,10 @@ def train_path(torch, smi, per_forward, training, s2d_conv,
                 f"{name}: {run['same_conv_launches']} / "
                 f"{run['grad_input_launches']} launches in "
                 f"{run['steps']} steps")
+        require(all(run["route_counts"][k] == v * run["steps"]
+                    for k, v in routes[name].items()),
+                f"{name}: routes {run['route_counts']} in {run['steps']} "
+                f"steps, expected {routes[name]} per step")
     return gx_rows, gx_totals, timing
 
 
@@ -777,8 +913,8 @@ def main() -> int:
     try:
         from consistent_depth_tpu_torch import training
         from consistent_depth_tpu_torch.flow import correlation as corr
-        from consistent_depth_tpu_torch.flow.backends import image_io
         from consistent_depth_tpu_torch.flow.runner import TorchFlowBackend
+        from consistent_depth_tpu_torch.io import image_io
         from consistent_depth_tpu_torch.models import hourglass
         from consistent_depth_tpu_torch.models.registry import (
             create_depth_model)
@@ -825,12 +961,11 @@ def main() -> int:
     per_forward = 1 + 3 * n_incep + 1   # stem, k x k branches, merged heads
     rows = []
     for i, ((xs, ws, has_bias), count) in enumerate(sorted(classes.items())):
-        row = check_kernel(torch, s2d_conv, xs, ws, has_bias, seed=i)
+        row = check_conv(torch, s2d_conv, "forward", xs, ws, has_bias, seed=i)
         row["per_forward"] = count
         rows.append(row)
         emit({"phase": "kernel", **row})
-    totals = {dt: {key: sum(r[dt][key] * r["per_forward"] for r in rows)
-                   for key in ("ms", "cudnn_ms")} for dt in ("f32", "bf16")}
+    totals = conv_totals(rows, "per_forward")
     emit({"phase": "kernels", "classes": len(rows),
           "launches_per_forward": sum(classes.values()),
           "expected_per_forward": per_forward,
@@ -840,6 +975,19 @@ def main() -> int:
     require(sum(classes.values()) == per_forward,
             f"{sum(classes.values())} same_conv calls per forward, "
             f"expected {per_forward}")
+
+    # the ragged cases and the train phase's 64x96 classes, both directions
+    added = check_added_cases(torch, s2d_conv, create_depth_model)
+    emit({"phase": "conv_cases", "cases": len(added),
+          "routes": Counter(f"{r['direction']}_{r[dt]['route']}"
+                            for r in added for dt in ("f32", "bf16")),
+          "max_rel_err": {dt: max(r[dt]["max_rel_err"] for r in added)
+                          for dt in ("f32", "bf16")},
+          "tol_rel": {"f32": TOL_F32, "bf16": TOL_BF16},
+          "failed": [r for r in added if not r["pass"]],
+          "pass": all(r["pass"] for r in added)})
+    require(all(r["pass"] for r in added),
+            "kernel disagrees with plain on an added case")
 
     # -- 4. the main path: serving ----------------------------------------
     rng = np.random.default_rng(0)
@@ -854,13 +1002,17 @@ def main() -> int:
         model_type="mc", checkpoint="", precision="bf16", batch_size=BATCH))
     server.infer_videos(videos)            # warm-up
     torch.cuda.synchronize()
-    s2d_conv.launches = corr.launches = 0
+    s2d_conv.reset_counts()
+    corr.launches = 0
     t0 = time.perf_counter()
     out = server.infer_videos(videos)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = s2d_conv.launches
+    serve_routes = dict(s2d_conv.route_counts)
     serve_corr_launches = corr.launches
+    want_routes = {f"forward_{r}": n * n_batches for r, n in expected_routes(
+        s2d_conv, classes, torch.bfloat16, False).items()}
 
     server32 = DepthServer(ServeConfig(
         model_type="mc", checkpoint="", precision="f32", batch_size=BATCH))
@@ -887,6 +1039,7 @@ def main() -> int:
         "batch_size": BATCH, "precision": "bf16", "seconds": dt,
         "fps": n_frames / dt, "ms_per_frame": 1e3 * dt / n_frames,
         "launches": launches, "expected_launches": per_forward * n_batches,
+        "route_counts": serve_routes, "expected_routes": want_routes,
         "correlation_launches": serve_corr_launches,
         "shapes_ok": shapes_ok, "finite": finite,
         "init_log_depth_range": [float(log32.min()), float(log32.max())],
@@ -900,6 +1053,8 @@ def main() -> int:
     require(finite, "non-finite depth")
     require(launches == per_forward * n_batches,
             f"{launches} kernel launches, expected {per_forward * n_batches}")
+    require(all(serve_routes[k] == v for k, v in want_routes.items()),
+            f"serving took routes {serve_routes}, expected {want_routes}")
     require(max(rel_l2.values()) < TOL_SERVE_BF16,
             f"bf16 against f32 depth {rel_l2}")
     require(cpu_err < TOL_CPU_REF, f"card against CPU {cpu_err}")
@@ -1021,33 +1176,37 @@ def main() -> int:
     del backend
     torch.cuda.empty_cache()
     gx_rows, gx_totals, timing = train_path(
-        torch, smi, per_forward, training, s2d_conv, create_depth_model,
+        torch, smi, classes, training, s2d_conv, create_depth_model,
         LossWeights)
 
+    # the launches by route from the timed train runs: the bf16 step (the
+    # production path) on the tensor-core kernel, the f32 step (the parity
+    # path) on the FMA template; each conv entry sums its classes per
+    # batch-8 forward (phase 3) or per train step (phase 7)
+    tc, fma = (timing[p]["route_counts"] for p in ("bf16", "f32"))
+    tc_src = "consistent_depth_tpu_torch/csrc/same_conv_tc.cu"
+    fma_src = "consistent_depth_tpu_torch/csrc/same_conv.cu"
+    conv_tpu = "consistent_depth_tpu/ops/s2d_conv.py:168"
+    vjp_tpu = "consistent_depth_tpu/models/layers.py:321"
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "same_conv", "route": "cuda",
-        "source": "consistent_depth_tpu_torch/csrc/same_conv.cu",
-        "replaces": "consistent_depth_tpu/ops/s2d_conv.py:168",
-        "launches": timing["bf16"]["same_conv_launches"],
-        "max_abs_err": max(r["f32"]["max_abs_err"] for r in rows),
-        "ms": totals["bf16"]["ms"], "plain_ms": totals["bf16"]["cudnn_ms"],
-    }, {
-        "name": "correlation", "route": "cuda",
-        "source": "consistent_depth_tpu_torch/csrc/correlation.cu",
-        "replaces": "consistent_depth_tpu/flow/correlation.py:116",
-        "launches": flow_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in corr_rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-    }, {
-        "name": "same_conv_grad_input", "route": "cuda",
-        "source": "consistent_depth_tpu_torch/csrc/same_conv.cu",
-        "replaces": "consistent_depth_tpu/models/layers.py:321",
-        "launches": timing["bf16"]["grad_input_launches"],
-        "max_abs_err": max(r["f32"]["max_abs_err"] for r in gx_rows),
-        "ms": gx_totals["bf16"]["ms"],
-        "plain_ms": gx_totals["bf16"]["cudnn_dgrad_ms"],
-    }]})
+    emit({"kernels": [
+        conv_entry("same_conv", tc_src, conv_tpu, tc["forward_tc"], rows,
+                   "per_forward", "bf16", "tc"),
+        {"name": "correlation", "route": "cuda",
+         "source": "consistent_depth_tpu_torch/csrc/correlation.cu",
+         "replaces": "consistent_depth_tpu/flow/correlation.py:116",
+         "launches": flow_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in corr_rows),
+         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+         "library_ms": None},
+        conv_entry("same_conv_grad_input", tc_src, vjp_tpu,
+                   tc["grad_input_tc"], gx_rows, "per_step", "bf16", "tc"),
+        conv_entry("same_conv_f32", fma_src, conv_tpu, fma["forward_fma"],
+                   rows, "per_forward", "f32", "fma"),
+        conv_entry("same_conv_grad_input_f32", fma_src, vjp_tpu,
+                   fma["grad_input_fma"], gx_rows, "per_step", "f32", "fma"),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,14 +1,19 @@
 """PyTorch/CUDA port of consistent_depth_tpu for one NVIDIA H100.
 
-Imports ``torch`` and never ``jax``. The JAX package beside it is the
-reference each module is tested against; of it, the port imports only
-three host modules that load no JAX (``flow.backends``, ``io.image_io``,
-``ops.flow_viz``). Ported so far:
+Imports ``torch`` and never ``jax``, and nothing of the JAX package
+beside it, which is the reference each module is tested against: the host
+helpers the port needs are its own copies (``io.image_io``, ``utils``,
+``data.video_dataset``, the flow helpers in ``flow.backends``, the colour
+wheel in ``ops.flow_viz``). Entry points run on the card unless the caller
+asks for the CPU. Ported so far:
 
 - eval-mode MannequinChallenge depth serving (``serving``), whose k x k
-  convs run through a hand-written CUDA kernel (``ops.s2d_conv``,
-  ``csrc/same_conv.cu``);
+  convs run through hand-written CUDA kernels (``ops.s2d_conv``:
+  ``csrc/same_conv_tc.cu`` on the tensor cores in bf16,
+  ``csrc/same_conv.cu`` on the FMA pipes in f32);
 - the native flow path: FlowNet2 (``flow``), whose FlowNetC cost volume
   runs through a hand-written CUDA kernel (``flow.correlation``,
-  ``csrc/correlation.cu``), and the flow stage (``pipeline.flow_stage``).
+  ``csrc/correlation.cu``), and the flow stage (``pipeline.flow_stage``);
+- the ``mc`` fine-tune train step (``training``), whose k x k convs'
+  grad-input runs through the same two kernels.
 """

@@ -20,11 +20,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..io import image_io
 from ..models.layers import init_parameters
 from ..models.torch_import import (checkpoint_for_module, flax_path,
                                    load_checkpoint, state_dict_for_module)
 from .backends import (FlowBackend, align_homography,
-                       compose_homography_flow, image_io, resize_flow)
+                       compose_homography_flow, resize_flow)
 from .flownet import FlowNet2, FlowNet2CSS
 
 # the modules that only the full network has

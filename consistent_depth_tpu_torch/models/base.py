@@ -34,9 +34,11 @@ class DepthModel:
     default_checkpoint: Optional[str] = None
 
     def __init__(self, checkpoint: Optional[str] = None, seed: int = 0,
-                 device="cpu", dtype: torch.dtype = torch.float32):
+                 device="cuda", dtype: torch.dtype = torch.float32):
         """``checkpoint=None`` means the adapter's default checkpoint path;
-        ``checkpoint=""`` means a seeded initialisation."""
+        ``checkpoint=""`` means a seeded initialisation. The network is
+        built on the host and moved to ``device``, the card unless the
+        caller asks for the CPU."""
         if checkpoint is None:
             checkpoint = self.default_checkpoint
         # built on the meta device so that construction draws nothing from

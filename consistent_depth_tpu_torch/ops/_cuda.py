@@ -111,6 +111,12 @@ def library() -> ctypes.CDLL:
         lib.same_conv_grad_input.argtypes = (
             [p, p, p] + [i32] * 7 + [i64] * 8 + [p])
         lib.same_conv_grad_input.restype = i32
+        lib.same_conv_tc_forward.argtypes = (
+            [p, p, p, p] + [i32] * 7 + [i64] * 8 + [i32, i32, p, p])
+        lib.same_conv_tc_forward.restype = i32
+        lib.same_conv_tc_grad_input.argtypes = (
+            [p, p, p] + [i32] * 7 + [i64] * 8 + [i32, i32, p, p])
+        lib.same_conv_tc_grad_input.restype = i32
         lib.correlation_forward.argtypes = (
             [p, p, p] + [i32] * 6 + [i64] * 8 + [p])
         lib.correlation_forward.restype = i32

@@ -5,35 +5,131 @@ The JAX package computes this conv on the TPU with a Pallas kernel that
 relays the input into space-to-depth form inside VMEM, because the
 hourglass's narrow convs (C_out 16/32) would otherwise fill a fraction of
 the MXU's 128 lanes (``consistent_depth_tpu/models/layers.py``, the
-space-to-depth section). Hopper has no 128-lane constraint, so the CUDA
-kernel here (``csrc/same_conv.cu``) is a direct convolution with no
-space-to-depth relayout: it stages the input tile and its halo in shared
-memory and accumulates in f32 registers.
+space-to-depth section). Hopper has no 128-lane constraint, so the port's
+two CUDA kernels compute the conv directly, with no relayout:
 
-Layouts are the JAX package's: x NHWC ``(N, H, W, Ci)``, w HWIO
+- ``csrc/same_conv_tc.cu``: bf16 on the tensor cores, an implicit GEMM
+  (``mma.sync`` fed by ``ldmatrix`` from a halo tile that ``cp.async``
+  stages in shared memory);
+- ``csrc/same_conv.cu``: f32 (the parity mode) on the FMA pipes.
+
+:func:`_plan` picks the route, the tile and the split of the reduction for
+one call. Layouts are the JAX package's: x NHWC ``(N, H, W, Ci)``, w HWIO
 ``(k, k, Ci, Co)``, out NHWC ``(N, H, W, Co)`` in x's dtype. Any strides are
-accepted for x and w, so channels_last activations and OIHW weights pass in
-as permuted views without a copy.
+accepted, so channels_last activations and OIHW weights pass in as permuted
+views without a copy; the tensor-core route copies a tensor whose channels
+are not contiguous or 16-byte aligned, and counts the copy.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _cuda
 
-# kernel sizes the CUDA kernel is instantiated for: those of the hourglass
+# kernel sizes the CUDA kernels are instantiated for: those of the hourglass
 KERNEL_SIZES = (3, 5, 7, 11)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# the tensor-core kernel's tiles: 16 output columns by 4, 8 or 16 rows, 16
+# reduction channels per step, output-channel blocks of 16, 32 or 64
+TILE_W = 16
+TILE_HEIGHTS = (16, 8, 4)
+CHUNK = 16
+# an H100 SXM's streaming multiprocessors; a grid below two blocks per SM
+# leaves the card under-filled
+SMS = 132
+MIN_BLOCKS = 2 * SMS
+
 # number of CUDA kernel launches made by :func:`same_conv` and by
-# :func:`same_conv_grad_input`
+# :func:`same_conv_grad_input` (one per call, whatever the route)
 launches = 0
 grad_input_launches = 0
+# the same calls by route ("tc": csrc/same_conv_tc.cu, "fma":
+# csrc/same_conv.cu), the split-K reduction passes, and the tensors the
+# tensor-core route copied to make their channels contiguous and aligned
+route_counts = dict.fromkeys(
+    ("forward_tc", "forward_fma", "grad_input_tc", "grad_input_fma",
+     "split_reduce", "layout_copies"), 0)
+
+
+def reset_counts() -> None:
+    """Zero :data:`launches`, :data:`grad_input_launches` and
+    :data:`route_counts`."""
+    global launches, grad_input_launches
+    launches = grad_input_launches = 0
+    for key in route_counts:
+        route_counts[key] = 0
+
+
+def co_block(channels: int) -> int:
+    """The tensor-core kernel's output-channel block for ``channels``."""
+    return 16 if channels <= 16 else 32 if channels <= 32 else 64
+
+
+def _plan(dtype: torch.dtype, N: int, H: int, W: int, Ci: int, Co: int,
+          k: int, grad_input: bool = False) -> Tuple[str, int, int]:
+    """``(route, tile_h, split)`` for one conv on the card: the forward of
+    x (N, H, W, Ci) with w (k, k, Ci, Co), or with ``grad_input`` its
+    grad-input, a conv reducing over Co into Ci channels.
+
+    bf16 takes the tensor cores ("tc"), except a grad-input into a number
+    of channels that is not a multiple of 8 (the kernel copies its weight
+    in 16-byte units along them); f32 takes the FMA template ("fma", tile
+    and split unused). The tile is the tallest of 16, 8, 4 rows that gives
+    at least MIN_BLOCKS blocks (16 only from twice that, so that the
+    taller tile, which re-reads less halo and weight per output, still
+    leaves each SM a few blocks); where even 4 rows give fewer, the
+    reduction's steps (16 channels by one tap row) are split over blocks,
+    up to MIN_BLOCKS blocks."""
+    red, out = (Co, Ci) if grad_input else (Ci, Co)
+    if dtype != torch.bfloat16 or (grad_input and out % 8):
+        return "fma", 0, 1
+    per_row = math.ceil(W / TILE_W) * N * math.ceil(out / co_block(out))
+
+    def blocks(th):
+        return math.ceil(H / th) * per_row
+
+    if blocks(16) >= 2 * MIN_BLOCKS:
+        return "tc", 16, 1
+    for th in TILE_HEIGHTS[1:]:
+        if blocks(th) >= MIN_BLOCKS:
+            return "tc", th, 1
+    steps = math.ceil(red / CHUNK) * k
+    return "tc", 4, min(steps, math.ceil(MIN_BLOCKS / blocks(4)))
+
+
+def _tc_ready(t: torch.Tensor, contiguous_dim: int, by_element: bool
+              ) -> bool:
+    """Whether the tensor-core kernel takes ``t`` as it is:
+    ``contiguous_dim`` of stride 1 and, unless the kernel loads ``t`` by
+    element (a narrow reduction), the other strides multiples of 8
+    elements and a 16-byte aligned base for its 16-byte copies."""
+    return t.stride(contiguous_dim) == 1 and (by_element or (
+        t.data_ptr() % 16 == 0 and all(
+            s % 8 == 0 for d, s in enumerate(t.stride())
+            if d != contiguous_dim)))
+
+
+def _tc_operands(a: torch.Tensor, w: torch.Tensor, grad_input: bool):
+    """The activations or cotangent a (N, H, W, C) and w (k, k, Ci, Co) as
+    the tensor-core kernel takes them: a with contiguous channels, w an
+    HWIO view of an OIHW channels_last tensor; each copy made is counted.
+    A reduction over a number of channels that is not a multiple of 8 is
+    loaded by element (a, and the forward's w)."""
+    narrow = a.shape[3] % 8 != 0
+    if not _tc_ready(a, 3, narrow):
+        a = a.contiguous()
+        route_counts["layout_copies"] += 1
+    if not _tc_ready(w, 2, narrow and not grad_input):
+        w = w.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+        route_counts["layout_copies"] += 1
+    return a, w
 
 
 def same_conv_reference(x: torch.Tensor, w: torch.Tensor,
@@ -77,8 +173,8 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, x_ch: int,
 
 def _forward(x: torch.Tensor, w: torch.Tensor,
              bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """The conv with no autograd record: the kernel on CUDA, the plain
-    version on the CPU."""
+    """The conv with no autograd record: on CUDA the kernel of
+    :func:`_plan`'s route, on the CPU the plain version."""
     if x.device.type == "cpu":
         return same_conv_reference(x, w, bias)
     if x.device.type != "cuda":
@@ -95,17 +191,31 @@ def _forward(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((N, H, W, Co), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    route, tile_h, split = _plan(x.dtype, N, H, W, Ci, Co, k)
     lib = _cuda.library()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.same_conv_forward(
-            x.data_ptr(), w.data_ptr(),
-            bias.data_ptr() if bias is not None else None,
-            out.data_ptr(), _DTYPE_CODES[x.dtype], N, H, W, Ci, Co, k,
-            *x.stride(), *w.stride(), ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if route == "tc":
+            x, w = _tc_operands(x, w, grad_input=False)
+            ws = (torch.empty((split, N, H, W, Co), dtype=torch.float32,
+                              device=x.device) if split > 1 else None)
+            err = lib.same_conv_tc_forward(
+                x.data_ptr(), w.data_ptr(),
+                bias.data_ptr() if bias is not None else None,
+                out.data_ptr(), _DTYPE_CODES[x.dtype], N, H, W, Ci, Co, k,
+                *x.stride(), *w.stride(), tile_h, split,
+                ws.data_ptr() if ws is not None else None, stream)
+        else:
+            err = lib.same_conv_forward(
+                x.data_ptr(), w.data_ptr(),
+                bias.data_ptr() if bias is not None else None,
+                out.data_ptr(), _DTYPE_CODES[x.dtype], N, H, W, Ci, Co, k,
+                *x.stride(), *w.stride(), stream)
     _cuda.check(lib, err, "same_conv")
     global launches
     launches += 1
+    route_counts["forward_" + route] += 1
+    route_counts["split_reduce"] += split > 1
     return out
 
 
@@ -113,8 +223,9 @@ def same_conv_grad_input(ct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grad-input of :func:`same_conv` for the cotangent ct (N, H, W, Co)
     and the forward's weight w (k, k, Ci, Co): (N, H, W, Ci). A CPU tensor
     takes :func:`same_conv_grad_input_reference`; a CUDA tensor launches
-    the kernel on the flipped, channel-swapped weight (a strided view, no
-    copy), or raises if the kernel does not take the arguments."""
+    the kernel of :func:`_plan`'s route on the flipped, channel-swapped
+    weight (a strided view, no copy), or raises if the kernel does not
+    take the arguments."""
     if ct.device.type == "cpu":
         return same_conv_grad_input_reference(ct, w)
     if ct.device.type != "cuda":
@@ -127,16 +238,30 @@ def same_conv_grad_input(ct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dx = torch.empty((N, H, W, Ci), dtype=ct.dtype, device=ct.device)
     if dx.numel() == 0:
         return dx
+    route, tile_h, split = _plan(ct.dtype, N, H, W, Ci, Co, k,
+                                 grad_input=True)
     lib = _cuda.library()
     with torch.cuda.device(ct.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.same_conv_grad_input(
-            ct.data_ptr(), w.data_ptr(), dx.data_ptr(),
-            _DTYPE_CODES[ct.dtype], N, H, W, Ci, Co, k, *ct.stride(),
-            *w.stride(), ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if route == "tc":
+            ct, w = _tc_operands(ct, w, grad_input=True)
+            ws = (torch.empty((split, N, H, W, Ci), dtype=torch.float32,
+                              device=ct.device) if split > 1 else None)
+            err = lib.same_conv_tc_grad_input(
+                ct.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                _DTYPE_CODES[ct.dtype], N, H, W, Ci, Co, k, *ct.stride(),
+                *w.stride(), tile_h, split,
+                ws.data_ptr() if ws is not None else None, stream)
+        else:
+            err = lib.same_conv_grad_input(
+                ct.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                _DTYPE_CODES[ct.dtype], N, H, W, Ci, Co, k, *ct.stride(),
+                *w.stride(), stream)
     _cuda.check(lib, err, "same_conv_grad_input")
     global grad_input_launches
     grad_input_launches += 1
+    route_counts["grad_input_" + route] += 1
+    route_counts["split_reduce"] += split > 1
     return dx
 
 

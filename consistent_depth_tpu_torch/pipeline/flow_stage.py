@@ -20,7 +20,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..flow.backends import create_flow_backend, image_io
+from ..flow.backends import create_flow_backend
+from ..io import image_io
 from ..ops import consistency
 from ..ops.flow_viz import flow_to_image_torch
 from ..ops.geometry import pixel_grid

@@ -93,7 +93,8 @@ def test_missing_checkpoint_raises(tmp_path):
         MannequinChallengeModel)
 
     with pytest.raises(FileNotFoundError):
-        MannequinChallengeModel(checkpoint=str(tmp_path / "absent.pth"))
+        MannequinChallengeModel(checkpoint=str(tmp_path / "absent.pth"),
+                                device="cpu")
 
 
 def test_eval_forward_matches_jax(jax_model):
@@ -118,9 +119,9 @@ def test_seeded_init_is_deterministic_and_lecun():
     from consistent_depth_tpu_torch.models.mannequin_challenge import (
         MannequinChallengeModel)
 
-    a = MannequinChallengeModel(checkpoint="", seed=3).net.state_dict()
-    b = MannequinChallengeModel(checkpoint="", seed=3).net.state_dict()
-    c = MannequinChallengeModel(checkpoint="", seed=4).net.state_dict()
+    a, b, c = (MannequinChallengeModel(checkpoint="", seed=seed,
+                                       device="cpu").net.state_dict()
+               for seed in (3, 3, 4))
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     assert not torch.equal(a["seq.0.weight"], c["seq.0.weight"])
@@ -142,3 +143,19 @@ def test_registry_only_mc():
             registry.create_depth_model(name)
     with pytest.raises(ValueError):
         registry.get_depth_model("dpt")
+
+
+def test_default_device_is_cuda(monkeypatch):
+    """DepthModel, and so create_depth_model, builds on the card unless the
+    caller asks for the CPU."""
+    import inspect
+
+    from consistent_depth_tpu_torch.models import base, registry
+
+    assert inspect.signature(
+        base.DepthModel.__init__).parameters["device"].default == "cuda"
+    moved = []
+    monkeypatch.setattr(base.DepthModel, "to",
+                        lambda self, device, dtype: moved.append(device))
+    registry.create_depth_model("mc", checkpoint="")
+    assert moved == ["cuda"]

@@ -1,11 +1,12 @@
 """The port stands without JAX, and its chip smoke script refuses to run
 without a CUDA card.
 
-Of the JAX package the port imports only host modules that load neither
-jax nor OpenCV (and their package ``__init__``s): the flow helpers, the
-image I/O, the colour wheel, and for training the pair-batch iterator and
-the frame range and pair sampling."""
+Neither the port nor ``chip_smoke.py`` loads any module of the JAX package,
+not even one that imports no JAX: the host helpers the port needs are its
+own copies (``tests/test_torch_host_copies.py`` holds them against the
+originals)."""
 
+import ast
 import json
 import os
 import pkgutil
@@ -16,18 +17,8 @@ import sys
 import consistent_depth_tpu_torch
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the JAX package's modules the port may load: the host helpers, the
-# packages above them, and what those import themselves
-JAX_FREE_HELPERS = [
-    "consistent_depth_tpu", "consistent_depth_tpu.flow",
-    "consistent_depth_tpu.flow.backends", "consistent_depth_tpu.io",
-    "consistent_depth_tpu.io._native", "consistent_depth_tpu.io.colmap_io",
-    "consistent_depth_tpu.io.image_io", "consistent_depth_tpu.io.metadata_io",
-    "consistent_depth_tpu.ops", "consistent_depth_tpu.ops.flow_viz",
-    "consistent_depth_tpu.data", "consistent_depth_tpu.data.video_dataset",
-    "consistent_depth_tpu.utils", "consistent_depth_tpu.utils.frame_range",
-    "consistent_depth_tpu.utils.frame_sampling",
-]
+# the JAX package's modules the port may load: none
+JAX_FREE_HELPERS = []
 
 
 def _port_modules():
@@ -35,6 +26,26 @@ def _port_modules():
         m.name for m in pkgutil.walk_packages(
             consistent_depth_tpu_torch.__path__,
             prefix="consistent_depth_tpu_torch."))
+
+
+def _forbidden_after(statements, forbid_cv2):
+    """Run ``statements`` in a fresh interpreter at the repository root and
+    return its exit status and the forbidden modules it then holds: jax,
+    flax, any module of the JAX package outside JAX_FREE_HELPERS, and with
+    ``forbid_cv2`` OpenCV."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {REPO_ROOT!r})\n"
+        + "".join(f"{line}\n" for line in statements) +
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'flax')) or "
+        f"({forbid_cv2!r} and (m == 'cv2' or m.startswith('cv2.'))) or "
+        "(m.split('.')[0] == 'consistent_depth_tpu' "
+        f"and m not in {JAX_FREE_HELPERS!r}))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300)
 
 
 def test_port_imports_without_jax():
@@ -45,20 +56,26 @@ def test_port_imports_without_jax():
               "flow.backends", "ops.resample", "ops.geometry",
               "ops.consistency", "ops.flow_viz", "pipeline.flow_stage",
               "ops.losses", "training", "training.engine",
-              "training.optimizer"):
+              "training.optimizer", "io.image_io", "utils.frame_range",
+              "utils.frame_sampling", "data.video_dataset"):
         assert "consistent_depth_tpu_torch." + m in mods
-    code = (
-        "import importlib, sys\n"
-        f"for m in {mods!r}:\n"
-        "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'cv2') or "
-        "m.startswith(('jax.', 'flax', 'cv2.')) or "
-        "(m.split('.')[0] == 'consistent_depth_tpu' "
-        f"and m not in {JAX_FREE_HELPERS!r}))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
-                          capture_output=True, text=True, timeout=300)
+    assert JAX_FREE_HELPERS == []
+    proc = _forbidden_after(
+        ["import importlib", f"for m in {mods!r}:",
+         "    importlib.import_module(m)"], forbid_cv2=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_without_jax():
+    """Every import statement of chip_smoke.py, wherever it stands in the
+    file (the port's modules are imported inside main(), OpenCV inside
+    the flow stage's phase), loads nothing of JAX or the JAX package."""
+    with open(os.path.join(REPO_ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    statements = [ast.unparse(n) for n in ast.walk(tree)
+                  if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert any("consistent_depth_tpu_torch" in s for s in statements)
+    proc = _forbidden_after(statements, forbid_cv2=False)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

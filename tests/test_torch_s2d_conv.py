@@ -8,6 +8,8 @@ reach both packages as the same values. Tolerance: f32, rtol = atol = 2e-5
 summation order.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -117,3 +119,91 @@ def test_same_conv2d_layouts():
         with torch.no_grad():
             torch.testing.assert_close(conv(x), plain(x), rtol=2e-5,
                                        atol=2e-5)
+
+
+def _hourglass_calls(batch=8, size=(224, 384)):
+    """The (x shape, w shape) of every same_conv call of one forward of the
+    hourglass, traced on the meta device (shapes only)."""
+    with torch.device("meta"):
+        net = hourglass.HourglassModel().eval()
+    calls = []
+    orig = s2d_conv.same_conv
+
+    def recording(x, w, bias=None):
+        calls.append((tuple(x.shape), tuple(w.shape)))
+        return x.new_empty((*x.shape[:3], w.shape[3]))
+
+    s2d_conv.same_conv = recording
+    try:
+        with torch.no_grad():
+            net(torch.empty((batch, 3, *size), device="meta").to(
+                memory_format=torch.channels_last))
+    finally:
+        s2d_conv.same_conv = orig
+    return calls
+
+
+def _split_ranges(steps, split):
+    """The reduction steps of each split, as the kernel cuts them."""
+    return [range(s * steps // split, (s + 1) * steps // split)
+            for s in range(split)]
+
+
+@pytest.mark.parametrize("direction", ["forward", "grad_input"])
+def test_plan_routes_hourglass_classes(direction):
+    """For every conv class of one batch-8 forward at 224x384 (68 calls)
+    and of its backward (67 grad-inputs: the stem's input needs none), bf16
+    takes the tensor cores (the stem's 3 input channels and the merged
+    heads' 2-channel cotangent too) and f32 the FMA template. A plan's
+    tiles cover the output, and a split's ranges cover every reduction
+    step once, with at least MIN_BLOCKS blocks."""
+    calls = _hourglass_calls()
+    assert len(calls) == 68
+    grad = direction == "grad_input"
+    if grad:
+        calls = calls[1:]
+    for (N, H, W, Ci), (k, _, _, Co) in calls:
+        assert s2d_conv._plan(torch.float32, N, H, W, Ci, Co, k,
+                              grad_input=grad) == ("fma", 0, 1)
+        route, th, split = s2d_conv._plan(torch.bfloat16, N, H, W, Ci, Co, k,
+                                          grad_input=grad)
+        assert route == "tc" and th in s2d_conv.TILE_HEIGHTS
+        red, out = (Co, Ci) if grad else (Ci, Co)
+        rows, cols = math.ceil(H / th), math.ceil(W / s2d_conv.TILE_W)
+        assert (rows - 1) * th < H <= rows * th
+        assert (cols - 1) * s2d_conv.TILE_W < W <= cols * s2d_conv.TILE_W
+        co_blocks = math.ceil(out / s2d_conv.co_block(out))
+        assert co_blocks * s2d_conv.co_block(out) >= out
+        steps = math.ceil(red / s2d_conv.CHUNK) * k
+        assert 1 <= split <= steps
+        ranges = _split_ranges(steps, split)
+        assert [s for r in ranges for s in r] == list(range(steps))
+        assert all(len(r) for r in ranges)
+        assert rows * cols * N * co_blocks * split >= s2d_conv.MIN_BLOCKS
+        if split > 1:
+            assert th == min(s2d_conv.TILE_HEIGHTS)
+
+
+def test_plan_narrow_and_ragged_cases():
+    """Narrow reductions take the tensor cores in bf16; a grad-input into a
+    number of channels that is not a multiple of 8 takes the FMA template;
+    a one-image ragged case splits up to its steps."""
+    bf16 = torch.bfloat16
+    assert s2d_conv._plan(bf16, 8, 224, 384, 3, 128, 7)[0] == "tc"
+    assert s2d_conv._plan(bf16, 8, 224, 384, 64, 2, 3,
+                          grad_input=True)[0] == "tc"
+    assert s2d_conv._plan(bf16, 8, 224, 384, 3, 128, 7,
+                          grad_input=True)[0] == "fma"
+    assert s2d_conv._plan(bf16, 8, 224, 384, 64, 2, 3)[0] == "tc"
+    # 1x7x13, k=11, 64 -> 16: two 4x16 tiles, 44 steps of the reduction
+    assert s2d_conv._plan(bf16, 1, 7, 13, 64, 16, 11) == ("tc", 4, 44)
+    assert s2d_conv._plan(bf16, 1, 7, 13, 64, 16, 11, grad_input=True) == (
+        "tc", 4, 11)
+
+
+def test_cuda_counts_reset():
+    s2d_conv.route_counts["forward_tc"] += 3
+    s2d_conv.launches += 1
+    s2d_conv.reset_counts()
+    assert s2d_conv.launches == s2d_conv.grad_input_launches == 0
+    assert set(s2d_conv.route_counts.values()) == {0}
