@@ -9,11 +9,12 @@ asks for the CPU. Ported so far:
 
 - eval-mode MannequinChallenge depth serving (``serving``), whose k x k
   convs run through hand-written CUDA kernels (``ops.s2d_conv``:
-  ``csrc/same_conv_tc.cu`` on the tensor cores in bf16,
-  ``csrc/same_conv.cu`` on the FMA pipes in f32);
+  ``csrc/same_conv_tc.cu`` and ``csrc/same_conv_tf32.cu``, bf16 and f32
+  on the tensor cores, and ``csrc/same_conv.cu`` on the FMA pipes for the
+  shapes they do not take);
 - the native flow path: FlowNet2 (``flow``), whose FlowNetC cost volume
   runs through a hand-written CUDA kernel (``flow.correlation``,
   ``csrc/correlation.cu``), and the flow stage (``pipeline.flow_stage``);
 - the ``mc`` fine-tune train step (``training``), whose k x k convs'
-  grad-input runs through the same two kernels.
+  grad-input runs through the same kernels.
 """

@@ -9,7 +9,7 @@ with images (B, N, H, W, 3) BGR in [0, 1] and depth (B, N, H, W) f32
 (depth, not disparity). The forward computes in ``compute_dtype``, which is
 the parameter dtype unless set apart from it: serving casts the whole
 network to bf16, while training keeps f32 parameters and BN running stats
-and computes in bf16, as the JAX package's production mode does
+and computes in bf16, as the JAX package's bf16 mode does
 (``layers.py::set_compute_dtype``).
 
 Weights come from a ``.pth`` checkpoint in the torch state_dict layout or,

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources in ``consistent_depth_tpu_torch/csrc/*.cu`` are compiled with
+The sources in ``consistent_depth_tpu_torch/csrc/*.cu`` (sharing the
+headers ``csrc/*.cuh``) are compiled with
 ``nvcc`` for ``sm_90a``, one ``nvcc`` process per source, all started
 together, and linked into one shared library with a plain C interface,
 ``build/cuda/libcdtt_<hash>.so`` at the root of the checkout, at first use.
@@ -111,12 +112,14 @@ def library() -> ctypes.CDLL:
         lib.same_conv_grad_input.argtypes = (
             [p, p, p] + [i32] * 7 + [i64] * 8 + [p])
         lib.same_conv_grad_input.restype = i32
-        lib.same_conv_tc_forward.argtypes = (
-            [p, p, p, p] + [i32] * 7 + [i64] * 8 + [i32, i32, p, p])
-        lib.same_conv_tc_forward.restype = i32
-        lib.same_conv_tc_grad_input.argtypes = (
-            [p, p, p] + [i32] * 7 + [i64] * 8 + [i32, i32, p, p])
-        lib.same_conv_tc_grad_input.restype = i32
+        for route in ("tc", "tf32"):
+            fwd = getattr(lib, f"same_conv_{route}_forward")
+            fwd.argtypes = [p, p, p, p] + [i32] * 7 + [i64] * 8 + [
+                i32, i32, p, p]
+            fwd.restype = i32
+            gx = getattr(lib, f"same_conv_{route}_grad_input")
+            gx.argtypes = [p, p, p] + [i32] * 7 + [i64] * 8 + [i32, i32, p, p]
+            gx.restype = i32
         lib.correlation_forward.argtypes = (
             [p, p, p] + [i32] * 6 + [i64] * 8 + [p])
         lib.correlation_forward.restype = i32

@@ -6,19 +6,25 @@ relays the input into space-to-depth form inside VMEM, because the
 hourglass's narrow convs (C_out 16/32) would otherwise fill a fraction of
 the MXU's 128 lanes (``consistent_depth_tpu/models/layers.py``, the
 space-to-depth section). Hopper has no 128-lane constraint, so the port's
-two CUDA kernels compute the conv directly, with no relayout:
+CUDA kernels compute the conv directly, with no relayout. Its routes:
 
-- ``csrc/same_conv_tc.cu``: bf16 on the tensor cores, an implicit GEMM
-  (``mma.sync`` fed by ``ldmatrix`` from a halo tile that ``cp.async``
-  stages in shared memory);
-- ``csrc/same_conv.cu``: f32 (the parity mode) on the FMA pipes.
+- ``"tc"``, ``csrc/same_conv_tc.cu``: bf16 on the tensor cores, an implicit
+  GEMM (``mma.sync`` fed by ``ldmatrix`` from a halo tile that
+  ``cp.async`` stages in shared memory; the machinery is
+  ``csrc/same_conv_tc.cuh``);
+- ``"tf32"``, ``csrc/same_conv_tf32.cu``: f32 (the fine-tune's default
+  precision) on the tensor cores, the same implicit GEMM with every
+  product split into three TF32 products (3xTF32), which keeps f32's
+  accuracy;
+- ``"fma"``, ``csrc/same_conv.cu``: a direct conv on the FMA pipes, for
+  the shapes the tensor-core kernels do not take.
 
 :func:`_plan` picks the route, the tile and the split of the reduction for
 one call. Layouts are the JAX package's: x NHWC ``(N, H, W, Ci)``, w HWIO
 ``(k, k, Ci, Co)``, out NHWC ``(N, H, W, Co)`` in x's dtype. Any strides are
 accepted, so channels_last activations and OIHW weights pass in as permuted
-views without a copy; the tensor-core route copies a tensor whose channels
-are not contiguous or 16-byte aligned, and counts the copy.
+views without a copy; the tensor-core routes copy a tensor whose channels
+are not contiguous or 16-byte aligned, and count the copy.
 """
 
 from __future__ import annotations
@@ -36,11 +42,16 @@ from . import _cuda
 KERNEL_SIZES = (3, 5, 7, 11)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the tensor-core kernel's tiles: 16 output columns by 4, 8 or 16 rows, 16
-# reduction channels per step, output-channel blocks of 16, 32 or 64
+# the tensor-core kernels' tiles: 16 output columns by 4, 8 or 16 rows,
+# output-channel blocks of 16, 32 or (bf16) 64; a step of the reduction is
+# 32 bytes of each pixel's channels (two 16-byte units), by dtype
 TILE_W = 16
 TILE_HEIGHTS = (16, 8, 4)
-CHUNK = 16
+MAX_CO_BLOCK = {torch.bfloat16: 64, torch.float32: 32}
+CHUNK = {torch.bfloat16: 16, torch.float32: 8}
+# the routes (module docstring), and the tensor-core route of each dtype
+ROUTES = ("tc", "tf32", "fma")
+_TC_ROUTE = {torch.bfloat16: "tc", torch.float32: "tf32"}
 # an H100 SXM's streaming multiprocessors; a grid below two blocks per SM
 # leaves the card under-filled
 SMS = 132
@@ -50,12 +61,12 @@ MIN_BLOCKS = 2 * SMS
 # :func:`same_conv_grad_input` (one per call, whatever the route)
 launches = 0
 grad_input_launches = 0
-# the same calls by route ("tc": csrc/same_conv_tc.cu, "fma":
-# csrc/same_conv.cu), the split-K reduction passes, and the tensors the
-# tensor-core route copied to make their channels contiguous and aligned
+# the same calls by route (ROUTES), the split-K reduction passes, and the
+# tensors the tensor-core routes copied to make their channels contiguous
+# and aligned
 route_counts = dict.fromkeys(
-    ("forward_tc", "forward_fma", "grad_input_tc", "grad_input_fma",
-     "split_reduce", "layout_copies"), 0)
+    [f"{d}_{r}" for d in ("forward", "grad_input") for r in ROUTES]
+    + ["split_reduce", "layout_copies"], 0)
 
 
 def reset_counts() -> None:
@@ -67,9 +78,17 @@ def reset_counts() -> None:
         route_counts[key] = 0
 
 
-def co_block(channels: int) -> int:
-    """The tensor-core kernel's output-channel block for ``channels``."""
-    return 16 if channels <= 16 else 32 if channels <= 32 else 64
+def co_block(channels: int, dtype: torch.dtype) -> int:
+    """The tensor-core kernels' output-channel block for ``channels`` of
+    ``dtype``."""
+    return 16 if channels <= 16 else min(32 if channels <= 32 else 64,
+                                         MAX_CO_BLOCK[dtype])
+
+
+def _unit(dtype: torch.dtype) -> int:
+    """Elements of ``dtype`` in one 16-byte unit of the tensor-core
+    kernels' copies."""
+    return 16 // dtype.itemsize
 
 
 def _plan(dtype: torch.dtype, N: int, H: int, W: int, Ci: int, Co: int,
@@ -78,51 +97,56 @@ def _plan(dtype: torch.dtype, N: int, H: int, W: int, Ci: int, Co: int,
     x (N, H, W, Ci) with w (k, k, Ci, Co), or with ``grad_input`` its
     grad-input, a conv reducing over Co into Ci channels.
 
-    bf16 takes the tensor cores ("tc"), except a grad-input into a number
-    of channels that is not a multiple of 8 (the kernel copies its weight
-    in 16-byte units along them); f32 takes the FMA template ("fma", tile
-    and split unused). The tile is the tallest of 16, 8, 4 rows that gives
-    at least MIN_BLOCKS blocks (16 only from twice that, so that the
-    taller tile, which re-reads less halo and weight per output, still
-    leaves each SM a few blocks); where even 4 rows give fewer, the
-    reduction's steps (16 channels by one tap row) are split over blocks,
-    up to MIN_BLOCKS blocks."""
+    Each dtype takes its tensor-core route (bf16 "tc", f32 "tf32"), except
+    a grad-input into a number of channels that is not a whole number of
+    16-byte units, 8 bf16 or 4 f32 (the kernels copy its weight in units
+    along them): that takes the FMA template ("fma", tile and split
+    unused). The tile is the tallest of 16, 8, 4 rows that gives at least
+    MIN_BLOCKS blocks (16 only from twice that, so that the taller tile,
+    which re-reads less halo and weight per output, still leaves each SM a
+    few blocks); where even 4 rows give fewer, the reduction's steps
+    (CHUNK[dtype] channels by one tap row) are split over blocks, up to
+    MIN_BLOCKS blocks."""
     red, out = (Co, Ci) if grad_input else (Ci, Co)
-    if dtype != torch.bfloat16 or (grad_input and out % 8):
+    if grad_input and out % _unit(dtype):
         return "fma", 0, 1
-    per_row = math.ceil(W / TILE_W) * N * math.ceil(out / co_block(out))
+    route = _TC_ROUTE[dtype]
+    per_row = math.ceil(W / TILE_W) * N * math.ceil(
+        out / co_block(out, dtype))
 
     def blocks(th):
         return math.ceil(H / th) * per_row
 
     if blocks(16) >= 2 * MIN_BLOCKS:
-        return "tc", 16, 1
+        return route, 16, 1
     for th in TILE_HEIGHTS[1:]:
         if blocks(th) >= MIN_BLOCKS:
-            return "tc", th, 1
-    steps = math.ceil(red / CHUNK) * k
-    return "tc", 4, min(steps, math.ceil(MIN_BLOCKS / blocks(4)))
+            return route, th, 1
+    steps = math.ceil(red / CHUNK[dtype]) * k
+    return route, 4, min(steps, math.ceil(MIN_BLOCKS / blocks(4)))
 
 
 def _tc_ready(t: torch.Tensor, contiguous_dim: int, by_element: bool
               ) -> bool:
-    """Whether the tensor-core kernel takes ``t`` as it is:
+    """Whether the tensor-core kernels take ``t`` as it is:
     ``contiguous_dim`` of stride 1 and, unless the kernel loads ``t`` by
-    element (a narrow reduction), the other strides multiples of 8
-    elements and a 16-byte aligned base for its 16-byte copies."""
+    element (a narrow reduction), the other strides whole 16-byte units (8
+    bf16 or 4 f32 elements) and a 16-byte aligned base for its 16-byte
+    copies."""
+    unit = _unit(t.dtype)
     return t.stride(contiguous_dim) == 1 and (by_element or (
         t.data_ptr() % 16 == 0 and all(
-            s % 8 == 0 for d, s in enumerate(t.stride())
+            s % unit == 0 for d, s in enumerate(t.stride())
             if d != contiguous_dim)))
 
 
 def _tc_operands(a: torch.Tensor, w: torch.Tensor, grad_input: bool):
     """The activations or cotangent a (N, H, W, C) and w (k, k, Ci, Co) as
-    the tensor-core kernel takes them: a with contiguous channels, w an
+    the tensor-core kernels take them: a with contiguous channels, w an
     HWIO view of an OIHW channels_last tensor; each copy made is counted.
-    A reduction over a number of channels that is not a multiple of 8 is
-    loaded by element (a, and the forward's w)."""
-    narrow = a.shape[3] % 8 != 0
+    A reduction over a number of channels that is not a whole number of
+    16-byte units is loaded by element (a, and the forward's w)."""
+    narrow = a.shape[3] % _unit(a.dtype) != 0
     if not _tc_ready(a, 3, narrow):
         a = a.contiguous()
         route_counts["layout_copies"] += 1
@@ -195,11 +219,11 @@ def _forward(x: torch.Tensor, w: torch.Tensor,
     lib = _cuda.library()
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        if route == "tc":
+        if route != "fma":
             x, w = _tc_operands(x, w, grad_input=False)
             ws = (torch.empty((split, N, H, W, Co), dtype=torch.float32,
                               device=x.device) if split > 1 else None)
-            err = lib.same_conv_tc_forward(
+            err = getattr(lib, f"same_conv_{route}_forward")(
                 x.data_ptr(), w.data_ptr(),
                 bias.data_ptr() if bias is not None else None,
                 out.data_ptr(), _DTYPE_CODES[x.dtype], N, H, W, Ci, Co, k,
@@ -243,11 +267,11 @@ def same_conv_grad_input(ct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = _cuda.library()
     with torch.cuda.device(ct.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        if route == "tc":
+        if route != "fma":
             ct, w = _tc_operands(ct, w, grad_input=True)
             ws = (torch.empty((split, N, H, W, Ci), dtype=torch.float32,
                               device=ct.device) if split > 1 else None)
-            err = lib.same_conv_tc_grad_input(
+            err = getattr(lib, f"same_conv_{route}_grad_input")(
                 ct.data_ptr(), w.data_ptr(), dx.data_ptr(),
                 _DTYPE_CODES[ct.dtype], N, H, W, Ci, Co, k, *ct.stride(),
                 *w.stride(), tile_h, split,

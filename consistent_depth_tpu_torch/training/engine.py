@@ -10,7 +10,9 @@ The engine holds the training state: the model's parameters and BN
 running stats, the optimizer's state, and ``step``. The parameters stay
 f32 whatever the precision; ``precision="bf16"`` makes the backbone
 compute in bf16 (convs, activations), with BN statistics, depth and the
-loss in f32, as the JAX package's production mode.
+loss in f32, as the JAX package's bf16 mode; ``precision`` defaults to
+f32, the fine-tune's default
+(``consistent_depth_tpu/training/fine_tuning.py --precision``).
 
 NaN-skip (reference: depth_fine_tuning.py:278-280, and the JAX engine's
 masked update): a step whose loss or any gradient is not finite leaves

@@ -149,32 +149,41 @@ def _split_ranges(steps, split):
             for s in range(split)]
 
 
+# each dtype's tensor-core route and reduction channels per step (32 bytes)
+TC_ROUTES = {torch.bfloat16: ("tc", 16), torch.float32: ("tf32", 8)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("direction", ["forward", "grad_input"])
-def test_plan_routes_hourglass_classes(direction):
+def test_plan_routes_hourglass_classes(direction, dtype):
     """For every conv class of one batch-8 forward at 224x384 (68 calls)
-    and of its backward (67 grad-inputs: the stem's input needs none), bf16
-    takes the tensor cores (the stem's 3 input channels and the merged
-    heads' 2-channel cotangent too) and f32 the FMA template. A plan's
-    tiles cover the output, and a split's ranges cover every reduction
-    step once, with at least MIN_BLOCKS blocks."""
+    and of its backward (67 grad-inputs: the stem's input needs none), each
+    dtype takes its tensor-core route, bf16 "tc" and f32 "tf32" (the stem's
+    3 input channels and the merged heads' 2-channel cotangent too), with
+    steps of 16 bf16 or 8 f32 reduction channels. A plan's tiles cover the
+    output, and a split's ranges cover every reduction step once, with at
+    least MIN_BLOCKS blocks."""
     calls = _hourglass_calls()
     assert len(calls) == 68
     grad = direction == "grad_input"
     if grad:
         calls = calls[1:]
+    want_route, chunk = TC_ROUTES[dtype]
+    assert s2d_conv.CHUNK[dtype] == chunk
     for (N, H, W, Ci), (k, _, _, Co) in calls:
-        assert s2d_conv._plan(torch.float32, N, H, W, Ci, Co, k,
-                              grad_input=grad) == ("fma", 0, 1)
-        route, th, split = s2d_conv._plan(torch.bfloat16, N, H, W, Ci, Co, k,
+        route, th, split = s2d_conv._plan(dtype, N, H, W, Ci, Co, k,
                                           grad_input=grad)
-        assert route == "tc" and th in s2d_conv.TILE_HEIGHTS
+        assert route == want_route and th in s2d_conv.TILE_HEIGHTS
         red, out = (Co, Ci) if grad else (Ci, Co)
         rows, cols = math.ceil(H / th), math.ceil(W / s2d_conv.TILE_W)
         assert (rows - 1) * th < H <= rows * th
         assert (cols - 1) * s2d_conv.TILE_W < W <= cols * s2d_conv.TILE_W
-        co_blocks = math.ceil(out / s2d_conv.co_block(out))
-        assert co_blocks * s2d_conv.co_block(out) >= out
-        steps = math.ceil(red / s2d_conv.CHUNK) * k
+        cob = s2d_conv.co_block(out, dtype)
+        assert cob <= s2d_conv.MAX_CO_BLOCK[dtype]
+        co_blocks = math.ceil(out / cob)
+        assert co_blocks * cob >= out
+        steps = math.ceil(red / chunk) * k
         assert 1 <= split <= steps
         ranges = _split_ranges(steps, split)
         assert [s for r in ranges for s in r] == list(range(steps))
@@ -185,20 +194,90 @@ def test_plan_routes_hourglass_classes(direction):
 
 
 def test_plan_narrow_and_ragged_cases():
-    """Narrow reductions take the tensor cores in bf16; a grad-input into a
-    number of channels that is not a multiple of 8 takes the FMA template;
-    a one-image ragged case splits up to its steps."""
-    bf16 = torch.bfloat16
+    """Narrow reductions take the tensor cores in both dtypes; a grad-input
+    into a number of channels that is not a whole number of 16-byte units
+    (8 bf16, 4 f32) takes the FMA template; a one-image ragged case splits
+    up to its steps."""
+    bf16, f32 = torch.bfloat16, torch.float32
     assert s2d_conv._plan(bf16, 8, 224, 384, 3, 128, 7)[0] == "tc"
     assert s2d_conv._plan(bf16, 8, 224, 384, 64, 2, 3,
                           grad_input=True)[0] == "tc"
     assert s2d_conv._plan(bf16, 8, 224, 384, 3, 128, 7,
                           grad_input=True)[0] == "fma"
     assert s2d_conv._plan(bf16, 8, 224, 384, 64, 2, 3)[0] == "tc"
+    assert s2d_conv._plan(f32, 8, 224, 384, 3, 128, 7)[0] == "tf32"
+    assert s2d_conv._plan(f32, 8, 224, 384, 64, 2, 3,
+                          grad_input=True)[0] == "tf32"
+    assert s2d_conv._plan(f32, 8, 224, 384, 3, 128, 7,
+                          grad_input=True) == ("fma", 0, 1)
+    assert s2d_conv._plan(f32, 8, 224, 384, 64, 2, 3)[0] == "tf32"
+    # a grad-input into 4 channels is a whole 16-byte unit in f32 only
+    assert s2d_conv._plan(f32, 2, 64, 96, 4, 16, 3,
+                          grad_input=True)[0] == "tf32"
+    assert s2d_conv._plan(bf16, 2, 64, 96, 4, 16, 3,
+                          grad_input=True)[0] == "fma"
     # 1x7x13, k=11, 64 -> 16: two 4x16 tiles, 44 steps of the reduction
+    # in bf16 (16 channels each), 88 in f32 (8 channels each)
     assert s2d_conv._plan(bf16, 1, 7, 13, 64, 16, 11) == ("tc", 4, 44)
     assert s2d_conv._plan(bf16, 1, 7, 13, 64, 16, 11, grad_input=True) == (
         "tc", 4, 11)
+    assert s2d_conv._plan(f32, 1, 7, 13, 64, 16, 11) == ("tf32", 4, 88)
+    assert s2d_conv._plan(f32, 1, 7, 13, 64, 16, 11, grad_input=True) == (
+        "tf32", 4, 22)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_tc_ready_by_dtype(dtype):
+    """The tensor-core kernels copy 16-byte units: strides of 8 bf16 or 4
+    f32 elements and a 16-byte aligned base, unless the tensor is loaded
+    by element; the contiguous dimension always needs stride 1."""
+    f32 = dtype == torch.float32
+    a = torch.zeros((2, 3, 5, 12), dtype=dtype)   # strides (180, 60, 12, 1)
+    assert s2d_conv._tc_ready(a, 3, False) == f32
+    assert s2d_conv._tc_ready(a, 3, True)
+    flat = torch.zeros(4 + 2 * 3 * 5 * 16, dtype=dtype)
+    assert flat.data_ptr() % 16 == 0
+    aligned = flat[:-4].view(2, 3, 5, 16)
+    assert s2d_conv._tc_ready(aligned, 3, False)
+    # 4 elements in: 16 bytes in f32, 8 in bf16
+    assert s2d_conv._tc_ready(flat[4:].view(2, 3, 5, 16), 3, False) == f32
+    assert not s2d_conv._tc_ready(aligned.permute(0, 1, 3, 2), 3, True)
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """f32 values rounded to TF32 (10 mantissa bits) as the card's
+    ``cvt.rna.tf32.f32`` does: to nearest, ties away from zero, on the
+    int32 view (adding half of the dropped 13 bits to the magnitude)."""
+    bits = a.astype(np.float32).view(np.int32)
+    return ((bits + 0x1000) & ~np.int32(0x1FFF)).view(np.float32)
+
+
+def test_tf32_products_need_three_terms():
+    """Why the f32 route splits each product into three TF32 products
+    (csrc/same_conv_tf32.cu): on a k=11 64->64 class, with f64 sums, one
+    TF32 product per product lands outside the f32 band of the card's
+    checks (max |d| / max |ref| <= 1e-4), and small*big + big*small +
+    big*big of big = tf32(v), small = tf32(v - big) stays below 1e-6."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1, 12, 16, 64)).astype(np.float32)
+    w = (rng.standard_normal((11, 11, 64, 64)) / np.sqrt(11 * 11 * 64)
+         ).astype(np.float32)
+
+    def conv(a, b):
+        return s2d_conv.same_conv_reference(
+            torch.from_numpy(a.astype(np.float64)),
+            torch.from_numpy(b.astype(np.float64))).numpy()
+
+    ref = conv(x, w)
+    xb, wb = _tf32(x), _tf32(w)
+    xs, ws = _tf32(x - xb), _tf32(w - wb)
+    assert np.all(xs.view(np.int32) & 0x1FFF == 0)
+    three = conv(xs, wb) + conv(xb, ws) + conv(xb, wb)
+    one = conv(xb, wb)
+    scale = np.abs(ref).max()
+    assert np.abs(three - ref).max() / scale < 1e-6
+    assert np.abs(one - ref).max() / scale > 1e-4
 
 
 def test_cuda_counts_reset():
