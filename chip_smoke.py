@@ -15,12 +15,15 @@ against its plain PyTorch version:
   stage's 448x1024 feed, then the flow stage's masks and visualisation
   (kernel: ``csrc/correlation.cu``, the banded route; the generic route,
   for arguments the banded kernel does not take, is checked beside it);
-- the ``mc`` fine-tune train step through
-  ``consistent_depth_tpu_torch.training.TrainingEngine.train_step`` on the
-  reference demo workload of ``bench.py::make_workload`` (244 frames at
-  224x384, the hierarchical2 pair set of 715 pairs, batch 4 pairs), in
-  bf16 and f32, f32 being the fine-tune's default precision (the same
-  kernels, forward and grad-input).
+- the ``mc`` fine-tune stage through
+  ``consistent_depth_tpu_torch.training``: ``TrainingEngine.train_step``,
+  ``train_epoch`` and ``eval_epoch`` on the reference demo workload of
+  ``bench.py::make_workload`` (244 frames at 224x384, the hierarchical2
+  pair set of 715 pairs, batch 4 pairs), in bf16 and f32, f32 being the
+  fine-tune's default precision, then the driver ``DepthFineTuner``
+  (epochs, eval passes, checkpoints, resume, ``save_depth``) on a scratch
+  dataset directory of 24 such frames (the same kernels, forward and
+  grad-input).
 
 Phases, each printing one JSON line:
 
@@ -73,8 +76,31 @@ Phases, each printing one JSON line:
    card against the CPU at
    64x96 (loss, BN running stats, and gradients with eval-mode BN); the
    bf16 step's loss against the f32 step's; the NaN-skip; ms per step in
-   bf16 and f32 (CUDA events and host clock), the peak memory, and the
-   device idle share and kernel split from ``torch.profiler``.
+   bf16 and f32 (CUDA events, host clock, and the host's time to queue the
+   steps), the peak memory, and the device idle share and kernel split from
+   ``torch.profiler``;
+9. epoch: on phase 8's resident data and engines, the first 8 batches of a
+   paired f32 eval with the kernels against the same with
+   ``same_conv_reference`` (per-pair losses, depth buffer); then per
+   precision (f32, bf16) one full ``train_epoch`` of 179 steps with the
+   driver's capture slots at display_freq 100 and one ``eval_epoch``
+   (paired in f32, deduplicated in bf16), each under the sync debug mode
+   "error", so that any hidden host read raises: ms per step and per pass
+   by CUDA events and host clock, the host's issue time, the launches by
+   route (68 x 179 forward and 67 x 179 grad-input per epoch; 68 x 179 or
+   68 x 31 forward per eval pass), no skipped step, the captured slots, all
+   frames seen; and the device idle share over a profiled epoch of 12
+   steps;
+10. driver: ``DepthFineTuner`` in f32 on a scratch dataset directory under
+   ``build/chip_smoke_ft/`` (24 frames at 224x384, 60 pairs), 2 epochs with
+   an eval pass before training and after each epoch, checkpoints and
+   ``--resume``, then ``save_depth``, then a resumed run to a third epoch:
+   the tag directory, the eval loss JSONs and depth dumps, ``0001.pth`` and
+   ``0002.pth`` loading strict=True (``0002.pth`` equal to the final
+   weights), 24 final depths, a TensorBoard event file, the launches of
+   each run, wall seconds per epoch and per eval; the directory is then
+   deleted and the driver's console output kept in
+   ``build/chip_smoke_driver.log``.
 
 Then the card's name and power limit as nvidia-smi prints them, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -91,7 +117,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext, redirect_stdout
 from itertools import islice
 
 import numpy as np
@@ -193,6 +219,24 @@ TOL_CPU_GRADS = 1e-5
 TOL_TRAIN_BF16 = 0.05
 # the parameters the loss does not read: the confidence head
 NO_GRAD_PARAMS = ("uncertainty_layer.",)
+# epoch path (phase 9): the driver's display-freq capture rule at the
+# default display_freq, which picks 7 of the 179 steps (715 pairs: the
+# count of pairs reaches 100, ..., 700); the profiled window; the paired f32
+# eval's first batches with the kernels against plain, per-pair losses
+# (relative) and the depth buffer (over max |plain|)
+DISPLAY_FREQ = 100
+EXPECTED_CAPTURES = 7
+PROFILED_EPOCH_STEPS = 12
+DEBUG_COST_STEPS = 20
+EVAL_CHECK_BATCHES = 8
+TOL_EVAL_PLAIN = 1e-4
+# driver path (phase 10): the same recipe at 224x384 over 24 frames (60
+# hierarchical2 pairs, 15 steps of 4), two epochs, then a resumed third;
+# display_freq 20 captures three steps per epoch
+FT_FRAMES = 24
+FT_EPOCHS = 2
+FT_DISPLAY_FREQ = 20
+FT_TAG = "B0.1_R1.0_PL1-0_LR0.0004_BS4_Oadam"
 
 
 def require(cond, what: str) -> None:
@@ -710,11 +754,11 @@ def drive_train(torch, engine, data, batches, s2d_conv):
     end = torch.cuda.Event(enable_timing=True)
     skipped = []
     s2d_conv.reset_counts()
-    engine.flag_wait_s = 0.0
     t0 = time.perf_counter()
     start.record()
     for idx, valid in timed:
         skipped.append(engine.train_step(data, idx, valid)["skipped_nan"])
+    issued = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
@@ -723,9 +767,9 @@ def drive_train(torch, engine, data, batches, s2d_conv):
         "steps": len(timed),
         "ms_per_step": start.elapsed_time(end) / len(timed),
         "host_ms_per_step": 1e3 * host_s / len(timed),
-        # the host blocked in the NaN-skip flag read, the step's one sync;
-        # the rest of the host's time is spent issuing work
-        "flag_wait_ms_per_step": 1e3 * engine.flag_wait_s / len(timed),
+        # the host's time to queue the steps (no step reads the device;
+        # the host waits only where the launch queue is full)
+        "host_issue_ms_per_step": 1e3 * issued / len(timed),
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "skipped": int(sum(bool(s) for s in skipped)),
         "same_conv_launches": launches[0],
@@ -784,8 +828,9 @@ def profile_train(torch, engine, data, batches, s2d_conv):
 def train_path(torch, smi, classes, training, s2d_conv,
                create_depth_model, LossWeights):
     """Phases 7 and 8 on the reference demo workload; ``classes`` are the
-    forward's conv classes of phase 3. Returns the grad-input rows, their
-    per-step sums and the timed runs."""
+    forward's conv classes of phase 3. Returns the grad-input rows and what
+    phases 9 and 10 reuse: the engines, the resident data, the routes per
+    step, the pair count and the tamed initial weights."""
     per_forward = sum(classes.values())
     # -- 7. grad-input kernel against plain, per backward conv class ------
     t_data = time.perf_counter()
@@ -999,7 +1044,6 @@ def train_path(torch, smi, classes, training, s2d_conv,
 
     # the main path: timed train steps in bf16 and in f32, the fine-tune's
     # default precision
-    timing = {}
     for name, eng in (("bf16", eng16), ("f32", eng32)):
         run = drive_train(torch, eng, data, batches[1:], s2d_conv)
         run["profile"] = profile_train(torch, eng, data, batches[1:],
@@ -1008,7 +1052,6 @@ def train_path(torch, smi, classes, training, s2d_conv,
         # the profiled device time over the unprofiled step is the estimate
         run["device_idle_share_unprofiled"] = (
             1.0 - run["profile"]["device_ms_per_step"] / run["ms_per_step"])
-        timing[name] = run
         emit({"phase": "train", "precision": name, **run,
               "workload": f"{TRAIN_FRAMES} frames {SIZE[0]}x{SIZE[1]}, "
                           f"{n_pairs} pairs, batch {TRAIN_BATCH}",
@@ -1025,7 +1068,400 @@ def train_path(torch, smi, classes, training, s2d_conv,
                     for k, v in routes[name].items()),
                 f"{name}: routes {run['route_counts']} in {run['steps']} "
                 f"steps, expected {routes[name]} per step")
-    return gx_rows, gx_totals, timing
+    context = {"engines": {"bf16": eng16, "f32": eng32}, "data": data,
+               "routes": routes, "n_pairs": n_pairs, "init_sd": init_sd}
+    return gx_rows, context
+
+
+@contextmanager
+def sync_errors(torch):
+    """Any operation inside the block that synchronises the host with the
+    card raises (``torch.cuda.set_sync_debug_mode("error")``): ``.item()``,
+    ``bool()`` of a device tensor, a boolean-mask index, ``nonzero``, a
+    blocking copy between host and card."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def timed_pass(torch, s2d_conv, steps, fn, checked=True):
+    """Run ``fn`` (an epoch or an eval pass) once, under :func:`sync_errors`
+    when ``checked``, with the conv launch counts zeroed just before and
+    read just after. Returns its result and the CUDA-event, host and
+    host-issue times (ms per step over ``steps``), the launches and the
+    routes."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    s2d_conv.reset_counts()
+    t0 = time.perf_counter()
+    with sync_errors(torch) if checked else nullcontext():
+        start.record()
+        out = fn()
+        issued = time.perf_counter() - t0
+        end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    return out, {
+        "steps": steps, "ms": start.elapsed_time(end),
+        "ms_per_step": start.elapsed_time(end) / steps,
+        "host_ms_per_step": 1e3 * host_s / steps,
+        "host_issue_ms_per_step": 1e3 * issued / steps,
+        "same_conv_launches": s2d_conv.launches,
+        "grad_input_launches": s2d_conv.grad_input_launches,
+        "route_counts": dict(s2d_conv.route_counts)}
+
+
+def profile_epoch(torch, engine, data, idx, valid):
+    """``torch.profiler`` over one ``train_epoch`` of ``len(idx)`` steps:
+    the device idle share over the window and the device ms per step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("epoch_window"):
+            engine.train_epoch(data, idx, valid)
+            torch.cuda.synchronize()
+    idle, by_name, _ = trace_summary(prof, "epoch_window", ())
+    return {"steps": len(idx), "device_idle_share": idle,
+            "device_ms_per_step": sum(by_name.values()) / 1e3 / len(idx)}
+
+
+def eval_kernel_vs_plain(torch, s2d_conv, engine, data, idx, valid):
+    """The first EVAL_CHECK_BATCHES batches of a paired f32 eval with the
+    kernels, then from the same state with ``same_conv_reference``: the
+    largest relative difference of the per-pair losses, and of the depth
+    buffer over max |plain|. The engine's state is put back after."""
+    state = {k: v.clone() for k, v in engine.model.net.state_dict().items()}
+    n = EVAL_CHECK_BATCHES
+    out = {}
+    for name in ("kernel", "plain"):
+        engine.model.net.load_state_dict(state)
+        orig = s2d_conv.same_conv
+        if name == "plain":
+            s2d_conv.same_conv = s2d_conv.same_conv_reference
+        try:
+            m = engine.eval_epoch(data, idx[:n], valid[:n])
+            out[name] = {k: v.double().cpu() for k, v in m.items()}
+        finally:
+            s2d_conv.same_conv = orig
+    engine.model.net.load_state_dict(state)
+    k, p = out["kernel"], out["plain"]
+    # padding pairs have zero losses on both sides
+    loss_rel = max(float(((k[x] - p[x]).abs()
+                          / p[x].abs().clamp_min(1e-30)).max())
+                   for x in ("reprojection", "disparity"))
+    depth_rel = float((k["depth_frames"] - p["depth_frames"]).abs().max()
+                      / p["depth_frames"].abs().max())
+    return {"batches": n, "pair_loss_rel": loss_rel,
+            "depth_rel_of_max": depth_rel,
+            "frames_seen": int(p["frames_seen"].sum()),
+            "seen_equal": bool(torch.equal(k["frames_seen"],
+                                           p["frames_seen"]))}
+
+
+def epoch_path(torch, smi, training, s2d_conv, per_forward, context):
+    """Phase 9: ``train_epoch`` and ``eval_epoch`` on phase 8's resident
+    data and engines, one full epoch and one eval pass per precision, each
+    under :func:`sync_errors`. Returns the runs by precision."""
+    data, routes = context["data"], context["routes"]
+    n_pairs = context["n_pairs"]
+    frames = data["frames"].shape[0]
+    steps = list(training.PairBatchIterator(
+        n_pairs, TRAIN_BATCH, seed=0).epoch(0))
+    idx = np.stack([s[0] for s in steps])
+    valid = np.stack([s[1] for s in steps])
+    n_steps = len(steps)
+    capture = training.capture_slots(
+        valid, 0, DISPLAY_FREQ, training.TrainingEngine.CAPTURE_SLOTS)
+    n_captured = int((capture >= 0).sum())
+    eidx, evalid = training.eval_batches(n_pairs, TRAIN_BATCH)
+    dedup_forwards = -(-frames // (2 * TRAIN_BATCH))
+
+    check = eval_kernel_vs_plain(torch, s2d_conv, context["engines"]["f32"],
+                                 data, eidx, evalid)
+    emit({"phase": "eval_kernel_vs_plain", "precision": "f32", **check,
+          "tol_rel": TOL_EVAL_PLAIN, "nvidia_smi": smi})
+    require(check["pair_loss_rel"] <= TOL_EVAL_PLAIN
+            and check["depth_rel_of_max"] <= TOL_EVAL_PLAIN
+            and check["seen_equal"],
+            f"paired eval, kernels vs plain: {check}")
+
+    runs = {}
+    for name in ("f32", "bf16"):
+        eng = context["engines"][name]
+        # warm-up outside the timed window: two steps and two eval batches
+        eng.train_epoch(data, idx[:2], valid[:2])
+        eng.eval_epoch(data, eidx[:2], evalid[:2])
+        m, train = timed_pass(
+            torch, s2d_conv, n_steps,
+            lambda: eng.train_epoch(data, idx, valid, capture))
+        cap = m["captured_depth"].float()
+        filled = [bool(torch.isfinite(cap[j]).all() and (cap[j] > 0).all())
+                  for j in range(n_captured)]
+        train.update({
+            "skipped": int(m["skipped_nan"].sum()),
+            "loss_first_last": [float(m["loss"][0]), float(m["loss"][-1])],
+            "loss_finite": bool(torch.isfinite(m["loss"]).all()),
+            "captured_slots": n_captured,
+            "captured_steps": np.nonzero(capture >= 0)[0].tolist(),
+            "captured_filled": all(filled),
+            "captured_rest_empty": not bool(cap[n_captured:].any()),
+            "captured_dtype": str(m["captured_depth"].dtype)})
+        # what the sync check itself costs the host: a short epoch without
+        # it and one with it
+        short = [timed_pass(torch, s2d_conv, DEBUG_COST_STEPS,
+                            lambda: eng.train_epoch(
+                                data, idx[:DEBUG_COST_STEPS],
+                                valid[:DEBUG_COST_STEPS]),
+                            checked=checked)[1]["ms_per_step"]
+                 for checked in (False, True)]
+        train["ms_per_step_unchecked_vs_checked"] = short
+        train["profile"] = profile_epoch(torch, eng, data,
+                                         idx[:PROFILED_EPOCH_STEPS],
+                                         valid[:PROFILED_EPOCH_STEPS])
+        train["device_idle_share_unprofiled"] = (
+            1.0 - train["profile"]["device_ms_per_step"]
+            / train["ms_per_step"])
+        em, ev = timed_pass(torch, s2d_conv, len(eidx),
+                            lambda: eng.eval_epoch(data, eidx, evalid))
+        forwards = dedup_forwards if eng.eval_dedup else len(eidx)
+        ev.update({
+            "kind": "dedup" if eng.eval_dedup else "paired",
+            "forwards": forwards,
+            "frames_seen_all": bool(em["frames_seen"].all()),
+            "losses_finite": bool(torch.isfinite(em["loss"]).all()),
+            "depth_positive": bool((em["depth_frames"] > 0).all()),
+            "depth_dtype": str(em["depth_frames"].dtype)})
+        runs[name] = {"train_epoch": train, "eval_epoch": ev}
+        emit({"phase": "epoch", "precision": name, **runs[name],
+              "workload": f"{frames} frames {SIZE[0]}x{SIZE[1]}, {n_pairs} "
+                          f"pairs, batch {TRAIN_BATCH}, {n_steps} steps",
+              "nvidia_smi": smi})
+        want_fwd = {f"forward_{r}": routes[name][f"forward_{r}"]
+                    for r in s2d_conv.ROUTES}
+        require(train["same_conv_launches"] == per_forward * n_steps
+                and train["grad_input_launches"]
+                == (per_forward - 1) * n_steps,
+                f"{name} epoch: {train['same_conv_launches']} / "
+                f"{train['grad_input_launches']} launches in {n_steps} steps")
+        require(all(train["route_counts"][k] == v * n_steps
+                    for k, v in routes[name].items()),
+                f"{name} epoch: routes {train['route_counts']}, expected "
+                f"{routes[name]} per step")
+        require(train["skipped"] == 0 and train["loss_finite"],
+                f"{name} epoch: {train['skipped']} skipped steps or a "
+                "non-finite loss")
+        require(n_captured == EXPECTED_CAPTURES and train["captured_filled"]
+                and train["captured_rest_empty"],
+                f"{name} epoch: capture slots {train['captured_steps']}")
+        require(ev["same_conv_launches"] == per_forward * forwards
+                and ev["grad_input_launches"] == 0,
+                f"{name} eval ({ev['kind']}): {ev['same_conv_launches']} "
+                f"launches, expected {per_forward * forwards}")
+        require(all(ev["route_counts"][k] == v * forwards
+                    for k, v in want_fwd.items()),
+                f"{name} eval: routes {ev['route_counts']}")
+        require(ev["frames_seen_all"] and ev["losses_finite"]
+                and ev["depth_positive"], f"{name} eval: {ev}")
+        require(ev["kind"] == ("dedup" if name == "bf16" else "paired"),
+                f"{name} eval took the {ev['kind']} pass")
+    return runs, check
+
+
+def write_ft_dataset(training, image_io, work_dir, init_sd, torch_import):
+    """A reference-layout dataset directory of FT_FRAMES frames at SIZE from
+    the train phase's recipe (``make_train_workload``): color_down/*.raw,
+    flow/*.raw and mask/*.png for both directions of each hierarchical2
+    pair, flow_list.json, R_hierarchical2_mc/metadata_scaled.npz, and the
+    tamed seeded weights as init.pth. Returns the range directory, the
+    checkpoint path and the number of one-way pairs."""
+    import cv2
+
+    w = make_train_workload(training, SIZE, n_frames=FT_FRAMES)
+    for sub in ("color_down", "flow", "mask"):
+        os.makedirs(os.path.join(work_dir, sub))
+    for i, frame in enumerate(w["frames"]):
+        # .raw colour is stored RGB; the loader swizzles it to BGR
+        image_io.save_raw_float32_image(
+            os.path.join(work_dir, "color_down", f"frame_{i:06d}.raw"),
+            frame[..., ::-1])
+    two_way = []
+    for p, (i, j) in enumerate(w["pair_ids"].tolist()):
+        for side, (a, b) in enumerate(((i, j), (j, i))):
+            image_io.save_raw_float32_image(
+                os.path.join(work_dir, "flow", f"flow_{a:06d}_{b:06d}.raw"),
+                w["flows"][p, side])
+            cv2.imwrite(os.path.join(work_dir, "mask",
+                                     f"mask_{a:06d}_{b:06d}.png"),
+                        (w["masks"][p, side] * 255).astype(np.uint8))
+            two_way.append([a, b])
+    with open(os.path.join(work_dir, "flow_list.json"), "w") as f:
+        json.dump(two_way, f)
+    range_dir = os.path.join(work_dir, "R_hierarchical2_mc")
+    os.makedirs(range_dir)
+    np.savez(os.path.join(range_dir, "metadata_scaled.npz"),
+             intrinsics=w["intrinsics"][0, :1].repeat(FT_FRAMES, 0),
+             extrinsics=w["extrinsics"][0, :1].repeat(FT_FRAMES, 0))
+    checkpoint = os.path.join(work_dir, "init.pth")
+    torch_import.save_checkpoint(checkpoint, init_sd)
+    return range_dir, checkpoint, len(w["pair_ids"])
+
+
+def run_driver(training, range_dir, checkpoint, epochs, log,
+               save_depth=False):
+    """One ``DepthFineTuner`` run in f32 on the card with the demo's
+    settings and ``--resume``, then ``save_depth`` if asked; its console
+    output goes to ``log``. Returns the driver, its wall seconds, its
+    console text and the seconds of save_depth (or None)."""
+    import argparse
+    import io
+
+    parser = training.DepthFineTuningParams.add_arguments(
+        argparse.ArgumentParser())
+    params = parser.parse_args([
+        "--lambda_view_baseline", "0.1", "--learning_rate", str(TRAIN_LR),
+        "--batch_size", str(TRAIN_BATCH), "--num_epochs", str(epochs),
+        "--val_epoch_freq", "1", "--save_epoch_freq", "1",
+        "--display_freq", str(FT_DISPLAY_FREQ), "--resume"])
+    params.path = os.path.dirname(range_dir)
+    params.model_type = "mc"
+    params.model_checkpoint = checkpoint
+    out = io.StringIO()
+    save_s = None
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        ft = training.DepthFineTuner(range_dir, list(range(FT_FRAMES)),
+                                     params)
+        ft.fine_tune()
+        if save_depth:
+            t1 = time.perf_counter()
+            ft.save_depth()
+            save_s = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    log.write(out.getvalue())
+    return ft, wall, out.getvalue(), save_s
+
+
+def driver_path(torch, smi, training, s2d_conv, image_io, torch_import,
+                create_depth_model, per_forward, context):
+    """Phase 10: the fine-tune driver on a scratch dataset directory: two
+    epochs with eval passes, checkpoints and save_depth, then a resumed run
+    to a third epoch; the artifacts checked, the directory deleted."""
+    work_dir = os.path.join(REPO, "build", "chip_smoke_ft")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    try:
+        return _driver_checks(torch, smi, training, s2d_conv, image_io,
+                              torch_import, create_depth_model, per_forward,
+                              context, work_dir)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+
+def _driver_checks(torch, smi, training, s2d_conv, image_io, torch_import,
+                   create_depth_model, per_forward, context, work_dir):
+    t0 = time.perf_counter()
+    range_dir, checkpoint, n_pairs = write_ft_dataset(
+        training, image_io, work_dir, context["init_sd"], torch_import)
+    write_s = time.perf_counter() - t0
+    steps = -(-n_pairs // TRAIN_BATCH)
+    log_path = os.path.join(REPO, "build", "chip_smoke_driver.log")
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    with open(log_path, "w") as log:
+        s2d_conv.reset_counts()
+        ft, wall, _, save_s = run_driver(training, range_dir, checkpoint,
+                                         FT_EPOCHS, log, save_depth=True)
+        launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+        routes = dict(s2d_conv.route_counts)
+        out_dir = ft.out_dir
+        ck = ft.checkpoints_dir
+        evals = sorted(f for f in os.listdir(os.path.join(out_dir, "eval"))
+                       if f.startswith("loss_e"))
+        losses_ok = True
+        for name in evals:
+            with open(os.path.join(out_dir, "eval", name)) as f:
+                d = json.load(f)
+            losses_ok &= set(d) == {"reprojection", "disparity", "mean"}
+            losses_ok &= all(math.isfinite(v) for sub in d.values()
+                             for v in sub.values())
+        eval_files = os.listdir(os.path.join(out_dir, "eval"))
+        depth_files = os.listdir(os.path.join(out_dir, "depth"))
+        final = {k: v.cpu() for k, v in ft.model.net.state_dict().items()}
+        loaded = {}
+        for e in (1, 2):
+            m = create_depth_model(
+                "mc", checkpoint=os.path.join(ck, f"{e:04d}.pth"),
+                device="cpu")
+            loaded[e] = m.net.state_dict()
+        pth_equal = all(torch.equal(loaded[2][k], v)
+                        for k, v in final.items())
+        events = os.listdir(os.path.join(out_dir, "tensorboard"))
+        full = sorted(f for f in os.listdir(ck) if f.startswith("full_"))
+        first = {"wall_s": wall, "epoch_s": ft.epoch_seconds,
+                 "eval_s": ft.eval_seconds,
+                 "save_depth_s": save_s,
+                 "launches": list(launches), "route_counts": routes,
+                 "step": ft.engine.step}
+
+        s2d_conv.reset_counts()
+        ft2, wall2, text2, _ = run_driver(training, range_dir, checkpoint,
+                                          FT_EPOCHS + 1, log)
+        launches2 = (s2d_conv.launches, s2d_conv.grad_input_launches)
+        full2 = sorted(f for f in os.listdir(ck) if f.startswith("full_"))
+        evals2 = sorted(f for f in os.listdir(os.path.join(out_dir, "eval"))
+                        if f.startswith("loss_e"))
+    resumed = {"wall_s": wall2, "epoch_s": ft2.epoch_seconds,
+               "eval_s": ft2.eval_seconds, "launches": list(launches2),
+               "step": ft2.engine.step,
+               "resumed_at_epoch_2": "(epoch 2)" in text2
+               and "Resumed from" in text2,
+               "full_checkpoints": full2, "eval_jsons": len(evals2)}
+    n_eval = FT_EPOCHS + 1
+    want_first = (per_forward * (FT_EPOCHS * steps + n_eval * steps
+                                 + -(-FT_FRAMES // TRAIN_BATCH)),
+                  (per_forward - 1) * FT_EPOCHS * steps)
+    want_resumed = (per_forward * 2 * steps, (per_forward - 1) * steps)
+    result = {
+        "phase": "driver", "frames": FT_FRAMES, "pairs": n_pairs,
+        "size": list(SIZE), "batch_pairs": TRAIN_BATCH, "precision": "f32",
+        "dataset_write_s": write_s, "tag": os.path.basename(out_dir),
+        "eval_jsons": evals, "eval_losses_finite": losses_ok,
+        "eval_depth_raw": sum(f.endswith(".raw") for f in eval_files),
+        "eval_depth_png": sum(f.endswith(".png") for f in eval_files),
+        "depth_raw": sum(f.endswith(".raw") for f in depth_files),
+        "depth_png": sum(f.endswith(".png") for f in depth_files),
+        "pth_0002_equals_final": pth_equal, "event_files": len(events),
+        "full_checkpoints": full, "first": first,
+        "expected_launches": list(want_first), "resumed": resumed,
+        "expected_resumed_launches": list(want_resumed),
+        "log": os.path.relpath(log_path, REPO), "nvidia_smi": smi}
+    emit(result)
+    require(result["tag"] == FT_TAG, f"driver tag {result['tag']}")
+    require(len(evals) == n_eval and losses_ok,
+            f"driver eval JSONs {evals}, finite {losses_ok}")
+    require(result["eval_depth_raw"] == result["eval_depth_png"]
+            == n_eval * FT_FRAMES, "driver eval depth files")
+    require(result["depth_raw"] == result["depth_png"] == FT_FRAMES,
+            "driver final depth files")
+    require(pth_equal, "0002.pth differs from the final parameters")
+    require(len(events) >= 1, "no TensorBoard event file")
+    require(full == ["full_0001", "full_0002"], f"full states {full}")
+    require(tuple(launches) == want_first,
+            f"driver launches {launches}, expected {want_first}")
+    require(routes["forward_fma"] == 0 and routes["grad_input_fma"] == 0,
+            f"driver routes {routes}")
+    require(resumed["resumed_at_epoch_2"] and len(ft2.epoch_seconds) == 1
+            and full2 == ["full_0001", "full_0002", "full_0003"]
+            and len(evals2) == n_eval + 1
+            and ft2.engine.step == (FT_EPOCHS + 1) * steps,
+            f"resumed run {resumed}")
+    require(tuple(launches2) == want_resumed,
+            f"resumed launches {launches2}, expected {want_resumed}")
+    return result
 
 
 def main() -> int:
@@ -1044,7 +1480,7 @@ def main() -> int:
         from consistent_depth_tpu_torch.flow import correlation as corr
         from consistent_depth_tpu_torch.flow.runner import TorchFlowBackend
         from consistent_depth_tpu_torch.io import image_io
-        from consistent_depth_tpu_torch.models import hourglass
+        from consistent_depth_tpu_torch.models import hourglass, torch_import
         from consistent_depth_tpu_torch.models.registry import (
             create_depth_model)
         from consistent_depth_tpu_torch.ops import _cuda, s2d_conv
@@ -1332,20 +1768,31 @@ def main() -> int:
     # -- 7-8. the train path ---------------------------------------------
     del backend
     torch.cuda.empty_cache()
-    gx_rows, gx_totals, timing = train_path(
+    gx_rows, context = train_path(
         torch, smi, classes, training, s2d_conv, create_depth_model,
         LossWeights)
 
-    # the launches by route from the timed train runs, by precision; each
-    # conv entry sums its classes per batch-8 forward (phase 3) or per
-    # train step (phase 7), for each route the plan gives a class of the
-    # main path (the FMA template, for the shapes the tensor-core kernels
-    # do not take, has none at present)
+    # -- 9. the epoch engine: train_epoch and eval_epoch ------------------
+    epochs, _ = epoch_path(torch, smi, training, s2d_conv, per_forward,
+                           context)
+
+    # -- 10. the fine-tune driver: epochs, evals, checkpoints, resume -----
+    context["engines"].clear()
+    del context["data"]
+    torch.cuda.empty_cache()
+    driver_path(torch, smi, training, s2d_conv, image_io, torch_import,
+                create_depth_model, per_forward, context)
+
+    # the launches by route from one train epoch of phase 9 (179 steps), by
+    # precision; each conv entry sums its classes per batch-8 forward
+    # (phase 3) or per train step (phase 7), for each route the plan gives
+    # a class of the main path (the FMA template, for the shapes the
+    # tensor-core kernels do not take, has none at present)
     conv_tpu = "consistent_depth_tpu/ops/s2d_conv.py:168"
     vjp_tpu = "consistent_depth_tpu/models/layers.py:321"
     entries = []
     for dt in ("bf16", "f32"):
-        counts = timing[dt]["route_counts"]
+        counts = epochs[dt]["train_epoch"]["route_counts"]
         for route in s2d_conv.ROUTES:
             suffix = ("" if dt == "bf16" else "_f32") + (
                 "_fma" if route == "fma" else "")

@@ -3,9 +3,9 @@
 Imports ``torch`` and never ``jax``, and nothing of the JAX package
 beside it, which is the reference each module is tested against: the host
 helpers the port needs are its own copies (``io.image_io``, ``utils``,
-``data.video_dataset``, the flow helpers in ``flow.backends``, the colour
-wheel in ``ops.flow_viz``). Entry points run on the card unless the caller
-asks for the CPU. Ported so far:
+``data.video_dataset``, ``training.summaries``, the flow helpers in
+``flow.backends``, the colour wheel in ``ops.flow_viz``). Entry points run
+on the card unless the caller asks for the CPU. Ported so far:
 
 - eval-mode MannequinChallenge depth serving (``serving``), whose k x k
   convs run through hand-written CUDA kernels (``ops.s2d_conv``:
@@ -15,6 +15,8 @@ asks for the CPU. Ported so far:
 - the native flow path: FlowNet2 (``flow``), whose FlowNetC cost volume
   runs through a hand-written CUDA kernel (``flow.correlation``,
   ``csrc/correlation.cu``), and the flow stage (``pipeline.flow_stage``);
-- the ``mc`` fine-tune train step (``training``), whose k x k convs'
-  grad-input runs through the same kernels.
+- the ``mc`` fine-tune stage (``training``): the train step and epoch, the
+  eval passes, eval-mode inference, and the driver with its checkpoints,
+  resume and artifacts; the k x k convs' grad-input runs through the same
+  kernels.
 """

@@ -92,6 +92,16 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def save_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor]
+                    ) -> None:
+    """Write ``state_dict`` as a ``.pth`` of CPU tensors, the layout that
+    :func:`load_checkpoint`, the reference, and the JAX package's reader
+    (``load_torch_checkpoint`` / ``state_dict_to_variables``, which drops
+    ``num_batches_tracked``) all take."""
+    torch.save({k: torch.as_tensor(v).detach().cpu().contiguous()
+                for k, v in state_dict.items()}, path)
+
+
 def flax_path(torch_key: str) -> Tuple[str, ...]:
     """'flownets.1.conv3.1.0.weight' and 'flownets_1.conv3_1.0.weight' ->
     ('flownets_1', 'conv3_1_0', 'weight'): alpha tokens grouped with the

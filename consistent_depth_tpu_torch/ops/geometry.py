@@ -39,8 +39,10 @@ def principal_point(intrinsics: torch.Tensor) -> torch.Tensor:
     return intrinsics[..., 2:]
 
 
-def _flip_v(dtype, device) -> torch.Tensor:
-    return torch.tensor([1.0, -1.0], dtype=dtype, device=device)
+def _flip_v(uv: torch.Tensor) -> torch.Tensor:
+    """(..., 2) -> (u, -v). Built from the tensor itself: a ``(1, -1)``
+    literal would be a blocking copy from the host on every call."""
+    return torch.cat((uv[..., :1], -uv[..., 1:]), dim=-1)
 
 
 def pixels_to_rays(pixels: torch.Tensor,
@@ -49,7 +51,7 @@ def pixels_to_rays(pixels: torch.Tensor,
     with z = -1."""
     cs = principal_point(intrinsics)[..., None, None, :]
     fs = focal_length(intrinsics)[..., None, None, :]
-    uv = (pixels - cs) * _flip_v(pixels.dtype, pixels.device) / fs
+    uv = _flip_v(pixels - cs) / fs
     ones = -torch.ones(uv.shape[:-1] + (1,), dtype=uv.dtype, device=uv.device)
     return torch.cat((uv, ones), dim=-1)
 
@@ -59,7 +61,7 @@ def project(points: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
     rays = points / -points[..., -1:]
     fs = focal_length(intrinsics)[..., None, None, :]
     cs = principal_point(intrinsics)[..., None, None, :]
-    uv = rays[..., :2] * fs * _flip_v(points.dtype, points.device)
+    uv = _flip_v(rays[..., :2] * fs)
     return uv + cs
 
 

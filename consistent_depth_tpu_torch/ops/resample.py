@@ -55,6 +55,15 @@ def bilinear_sample_pixels(data: torch.Tensor, x: torch.Tensor,
     return top * (1.0 - wy) + bot * wy
 
 
+def _normalise(uv: torch.Tensor, size_x: float, size_y: float
+               ) -> torch.Tensor:
+    """``2 uv / (size_x, size_y) - 1``. The size tensor is filled on uv's
+    device: one made from a list would be a blocking copy from the host on
+    every call."""
+    size = torch.stack((uv.new_full((), size_x), uv.new_full((), size_y)))
+    return 2.0 * uv / size - 1.0
+
+
 def grid_sample(data: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """``F.grid_sample(data, grid, padding_mode='border',
     align_corners=False)`` in NHWC: data (B, H, W, C), grid (B, Ho, Wo, 2)
@@ -69,14 +78,11 @@ def sample_uv(data: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """The reference's ``geometry.sample``: uv (B, Ho, Wo, 2) in pixels,
     normalised by (W - 1, H - 1) before :func:`grid_sample`."""
     H, W = data.shape[1:3]
-    size = torch.tensor([W - 1.0, H - 1.0], dtype=uv.dtype, device=uv.device)
-    return grid_sample(data, 2.0 * uv / size - 1.0)
+    return grid_sample(data, _normalise(uv, W - 1.0, H - 1.0))
 
 
 def sample_uv_wh(data: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """The reference's ``consistency.sample``: uv (B, Ho, Wo, 2) in
     pixels, normalised by (W, H). Net effect: x_src = u - 0.5."""
     H, W = data.shape[1:3]
-    size = torch.tensor([float(W), float(H)], dtype=uv.dtype,
-                        device=uv.device)
-    return grid_sample(data, 2.0 * uv / size - 1.0)
+    return grid_sample(data, _normalise(uv, float(W), float(H)))

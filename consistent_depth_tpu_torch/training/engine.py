@@ -1,10 +1,12 @@
-"""The training engine: the port of ``consistent_depth_tpu/training/engine.py``
-(the train and eval steps in this slice).
+"""The training engine: the port of ``consistent_depth_tpu/training/engine.py``.
 
 Reference equivalent: the body of DepthFineTuner.fine_tune's loop
-(depth_fine_tuning.py:261-304). One step gathers a pair batch from the
-dataset resident on the device, runs the backbone with train-mode BN,
-the geometric consistency loss, the backward and the optimizer.
+(depth_fine_tuning.py:261-304), its validation pass (:312-406) and the
+eval-mode inference of ``save_depth`` (:164-199). A step gathers a pair
+batch from the dataset resident on the device, runs the backbone with
+train-mode BN, the geometric consistency loss, the backward and the
+optimizer. ``train_epoch`` queues an epoch of steps, ``eval_epoch`` the
+validation pass, ``infer`` eval-mode depth.
 
 The engine holds the training state: the model's parameters and BN
 running stats, the optimizer's state, and ``step``. The parameters stay
@@ -14,19 +16,21 @@ loss in f32, as the JAX package's bf16 mode; ``precision`` defaults to
 f32, the fine-tune's default
 (``consistent_depth_tpu/training/fine_tuning.py --precision``).
 
-NaN-skip (reference: depth_fine_tuning.py:278-280, and the JAX engine's
-masked update): a step whose loss or any gradient is not finite leaves
-the parameters and the optimizer state (Adam's moments and step count
+NaN-skip (reference: depth_fine_tuning.py:278-280), as the JAX engine's
+masked update: a step whose loss or any gradient is not finite leaves the
+parameters and the optimizer state (Adam's moments and step count
 included) bitwise unchanged; the BN running stats keep the forward's
-update and ``step`` advances. Whether to apply the update is decided on
-the host, which reads one flag from the device per step: the step's one
-sync. ``flag_wait_s`` sums the host seconds spent blocked in that read.
+update and ``step`` advances. The flag stays on the device: it goes to
+the fused optimizer as ``found_inf``, so no step reads a value on the
+host. Where the JAX engine compiles an epoch into one ``lax.scan``, the
+port queues its steps on the card's stream: the index arrays go up once
+per epoch and every metric stays on the device, so an epoch or an eval
+pass issues no sync.
 """
 
 from __future__ import annotations
 
-import time
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -53,13 +57,40 @@ def gather_batch(data: Mapping[str, torch.Tensor],
     return batch
 
 
+def _stack(per_step: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """A list of per-step metric dicts -> one dict of tensors stacked over
+    steps."""
+    return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+
+def map_tensors(fn, obj):
+    """``obj`` (dicts, lists and tuples of tensors and plain values) with
+    ``fn`` applied to every tensor in it."""
+    if torch.is_tensor(obj):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(fn, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(map_tensors(fn, v) for v in obj)
+    return obj
+
+
+def _clone(obj):
+    """A copy of ``obj`` with every tensor cloned on its device."""
+    return map_tensors(lambda t: t.detach().clone(), obj)
+
+
 class TrainingEngine:
-    """Owns the train and eval steps for one backbone."""
+    """Owns the train, eval and infer passes for one backbone."""
+
+    # capacity of the per-epoch depth-capture buffer (one slot per
+    # display-freq TensorBoard image-grid event)
+    CAPTURE_SLOTS = 8
 
     def __init__(self, model: DepthModel, optimizer: OptimizerFactory,
                  weights: LossWeights,
                  params_init: Optional[Mapping[str, torch.Tensor]] = None,
-                 precision: str = "f32"):
+                 precision: str = "f32", eval_dedup: Optional[bool] = None):
         if precision not in ("f32", "bf16"):
             raise ValueError(f"precision must be 'f32' or 'bf16', not "
                              f"{precision!r}")
@@ -69,15 +100,14 @@ class TrainingEngine:
         if bad:
             raise ValueError(f"training keeps f32 parameters, the model has "
                              f"{bad}; build it with dtype=torch.float32")
+        self.precision = precision
         model.compute_dtype = (torch.bfloat16 if precision == "bf16"
                                else torch.float32)
-        if precision == "f32" and model.device.type == "cuda":
-            # f32 means f32: no TF32 in cuDNN convs (1x1 convs, wgrad) or
-            # matmuls, as the serving and flow paths
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         self.model = model
         self.optimizer = optimizer(self.params.values())
+        if not self.optimizer.defaults.get("fused"):
+            raise ValueError("the masked update needs a fused optimizer "
+                             "(training/optimizer.py builds them so)")
         self.weights = weights
         # copy of the pretrained parameters for the parameter loss
         # (reference: depth_fine_tuning.py:223-224), made only when needed
@@ -85,19 +115,47 @@ class TrainingEngine:
         if weights.lambda_parameter > 0 and params_init is None:
             self.params_init = {k: p.detach().clone()
                                 for k, p in self.params.items()}
+        # the deduplicated eval (eval_epoch) is the default under bf16 and
+        # off (the reference's paired pass) in f32, as in the JAX engine
+        self.eval_dedup = (precision == "bf16") if eval_dedup is None \
+            else eval_dedup
         self.step = 0
-        self.flag_wait_s = 0.0
+        self._policy()
+
+    def _policy(self) -> None:
+        """The card's TF32 policy, set before every pass because it is
+        process-global and another engine may have changed it: no TF32 in
+        cuDNN convs (1x1 convs, wgrad) or matmuls in either precision, as
+        the serving and flow paths (bf16 computes the backbone in bf16 by
+        its dtype)."""
+        if self.model.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    @property
+    def _dump_dtype(self) -> torch.dtype:
+        """Depths kept for the host (capture slots, eval buffers): f16
+        under bf16, whose predictions carry ~4e-3 relative noise, f32
+        otherwise (JAX engine :281-286, :302-309)."""
+        return torch.float16 if self.precision == "bf16" else torch.float32
 
     def put_data(self, data: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """Copy the dataset (numpy arrays) to the model's device."""
         return {k: torch.as_tensor(np.asarray(v)).to(self.model.device)
                 for k, v in data.items() if v is not None}
 
+    def _upload(self, array, dtype: torch.dtype) -> torch.Tensor:
+        """A host array on the model's device: on the card through pinned
+        memory and a non-blocking copy, which does not wait for the
+        queued work."""
+        t = torch.as_tensor(np.ascontiguousarray(array), dtype=dtype)
+        if self.model.device.type == "cuda":
+            return t.pin_memory().to(self.model.device, non_blocking=True)
+        return t.to(self.model.device)
+
     def _indices(self, idx, valid):
-        dev = self.model.device
-        return (torch.as_tensor(np.asarray(idx), dtype=torch.long).to(dev),
-                torch.as_tensor(np.asarray(valid),
-                                dtype=torch.float32).to(dev))
+        return (self._upload(idx, torch.long),
+                self._upload(valid, torch.float32))
 
     def _loss(self, batch: Mapping[str, torch.Tensor], valid: torch.Tensor,
               train: bool):
@@ -111,44 +169,249 @@ class TrainingEngine:
             params_init=self.params_init, valid=valid)
         return loss, batch_losses, depth
 
+    # -- training ---------------------------------------------------------
+    def _step(self, data: Mapping[str, torch.Tensor], idx: torch.Tensor,
+              valid: torch.Tensor):
+        """One optimizer step on device index tensors; returns its metrics
+        and the batch's depth (B, 2, H, W), all on the device."""
+        batch = gather_batch(data, idx)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, batch_losses, depth = self._loss(batch, valid, train=True)
+        loss.backward()
+        # skip on a non-finite loss AND on non-finite gradients: a finite
+        # loss can still carry 0*inf gradients through the 1/z backward
+        # at degenerate depths. One multi-tensor pass over the gradients
+        # (the check of torch.amp's GradScaler, at scale 1, which leaves
+        # every finite value as it is) sets ``found`` to 1 on any NaN/inf;
+        # the fused optimizer then skips its update where it is 1.
+        grads = [p.grad for p in self.params.values() if p.grad is not None]
+        found = torch.zeros((), device=loss.device)
+        torch._amp_foreach_non_finite_check_and_unscale_(
+            grads, found, torch.ones((), device=loss.device))
+        found = torch.maximum(found, (~torch.isfinite(loss.detach())).float())
+        self.optimizer.grad_scale = None
+        self.optimizer.found_inf = found
+        self.optimizer.step()
+        self.step += 1
+        metrics = {"loss": loss.detach(), "skipped_nan": found > 0,
+                   **{k: v.detach() for k, v in batch_losses.items()}}
+        return metrics, depth.detach()
+
     def train_step(self, data: Mapping[str, torch.Tensor], idx,
                    valid) -> Dict[str, torch.Tensor]:
         """One optimizer step on pairs ``idx`` (B,) of the resident
         ``data``, ``valid`` (B,) marking real (1) and padding (0) pairs.
         Returns device tensors: ``loss``, ``skipped_nan``, and the per-pair
         ``reprojection`` and ``disparity`` losses."""
-        idx, valid = self._indices(idx, valid)
-        batch = gather_batch(data, idx)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, batch_losses, _ = self._loss(batch, valid, train=True)
-        loss.backward()
-        # skip on a non-finite loss AND on non-finite gradients: a finite
-        # loss can still carry 0*inf gradients through the 1/z backward
-        # at degenerate depths. One multi-tensor pass over the gradients
-        # (the check of torch.amp's GradScaler, at scale 1, which leaves
-        # every finite value as it is) sets ``found`` to 1 on any NaN/inf.
-        grads = [p.grad for p in self.params.values() if p.grad is not None]
-        found = torch.zeros((), device=loss.device)
-        torch._amp_foreach_non_finite_check_and_unscale_(
-            grads, found, torch.ones((), device=loss.device))
-        ok = (found == 0) & torch.isfinite(loss)
-        t0 = time.perf_counter()
-        apply = bool(ok)
-        self.flag_wait_s += time.perf_counter() - t0
-        if apply:
-            self.optimizer.step()
-        self.step += 1
-        return {"loss": loss.detach(), "skipped_nan": ~ok,
-                **{k: v.detach() for k, v in batch_losses.items()}}
+        self._policy()
+        return self._step(data, *self._indices(idx, valid))[0]
 
+    def train_epoch(self, data: Mapping[str, torch.Tensor], idx, valid,
+                    capture_slot=None) -> Dict[str, torch.Tensor]:
+        """Queue all steps of an epoch (JAX engine :250-290, a
+        ``lax.scan`` there).
+
+        Args:
+            idx, valid: (steps, batch) host arrays, uploaded once
+            capture_slot: optional (steps,) host ints; where >= 0 the
+                step's predicted depths are copied into slot
+                ``capture_slot[s]`` of ``captured_depth``, so that the
+                display-frequency image grids get the training forward's
+                prediction without another forward (reference
+                depth_fine_tuning.py:290-293). Slots >= CAPTURE_SLOTS are
+                dropped.
+        Returns:
+            the metrics stacked over steps, on the device: ``loss`` (S,),
+            ``skipped_nan`` (S,), ``reprojection`` / ``disparity`` (S, B),
+            and ``captured_depth`` (CAPTURE_SLOTS, B, 2, H, W), f16 under
+            bf16 and f32 otherwise.
+        """
+        self._policy()
+        idx_t, valid_t = self._indices(idx, valid)
+        S, B = idx_t.shape
+        H, W = data["frames"].shape[1:3]
+        cap = torch.zeros((self.CAPTURE_SLOTS, B, 2, H, W),
+                          dtype=self._dump_dtype, device=self.model.device)
+        per_step = []
+        for s in range(S):
+            metrics, depth = self._step(data, idx_t[s], valid_t[s])
+            slot = -1 if capture_slot is None else int(capture_slot[s])
+            if 0 <= slot < self.CAPTURE_SLOTS:
+                cap[slot].copy_(depth)
+            per_step.append(metrics)
+        out = _stack(per_step)
+        out["captured_depth"] = cap
+        return out
+
+    # -- validation -------------------------------------------------------
     @torch.no_grad()
     def eval_step(self, data: Mapping[str, torch.Tensor], idx,
                   valid) -> Dict[str, torch.Tensor]:
         """Validation pass on one batch: train-mode BN with running-stat
         updates and no gradient step (torch no_grad in train() mode,
         reference depth_fine_tuning.py:246-257, 312-341)."""
+        self._policy()
         idx, valid = self._indices(idx, valid)
+        return self._eval_batch(data, idx, valid)
+
+    def _eval_batch(self, data, idx, valid):
         batch = gather_batch(data, idx)
         loss, batch_losses, depth = self._loss(batch, valid, train=True)
         return {"loss": loss, "depth": depth, "pair_ids": batch["pair_ids"],
                 **batch_losses}
+
+    @torch.no_grad()
+    def eval_epoch(self, data: Mapping[str, torch.Tensor], idx,
+                   valid) -> Dict[str, torch.Tensor]:
+        """Queue the whole eval pass: the paired pass (the default in f32)
+        or, with ``eval_dedup``, the deduplicated one.
+
+        Args:
+            idx, valid: (steps, batch) host arrays
+        Returns:
+            device metrics: per-step ``loss`` (S,), ``pair_ids`` (S, B, 2),
+            ``reprojection`` / ``disparity`` (S, B), plus ``depth_frames``
+            (num_frames, H, W), f16 under bf16, and ``frames_seen``
+            (num_frames,).
+        """
+        self._policy()
+        idx_t, valid_t = self._indices(idx, valid)
+        if self.eval_dedup:
+            return self._eval_epoch_dedup(data, idx_t, valid_t)
+        return self._eval_epoch_paired(data, idx_t, valid_t)
+
+    def _eval_epoch_paired(self, data, idx, valid):
+        """The reference's validation loop (JAX engine :292-338): a
+        train-mode forward per pair batch, the BN running stats threading
+        through (the padding duplicates of the last batch included), each
+        frame's depth kept once, first seen wins.
+
+        The JAX pass writes a batch's depths one by one; here one indexed
+        copy writes them all, so each slot's first valid occurrence in the
+        batch is found first (a (2B, 2B) comparison of the batch's slots):
+        a frame that appears twice in one batch is written once, from its
+        first side. Every other row goes to a dump row past the frames."""
+        n_frames, H, W = data["frames"].shape[:3]
+        dev = self.model.device
+        buf = torch.zeros((n_frames + 1, H, W), dtype=self._dump_dtype,
+                          device=dev)
+        seen = torch.zeros((n_frames + 1,), dtype=torch.bool, device=dev)
+        n = 2 * idx.shape[1]
+        order = torch.arange(n, device=dev)
+        earlier = order[None, :] < order[:, None]        # [i, j]: j before i
+        per_step = []
+        for s in range(idx.shape[0]):
+            m = self._eval_batch(data, idx[s], valid[s])
+            flat = m.pop("depth").to(buf.dtype).reshape(n, H, W)
+            slots = data["pair_slots"][idx[s]].reshape(n).long()
+            ok = (valid[s] > 0)[:, None].expand(-1, 2).reshape(n)
+            repeated = ((slots[:, None] == slots[None, :]) & earlier
+                        & ok[None, :]).any(1)
+            take = ok & ~repeated & ~seen[slots]
+            buf.index_copy_(0, torch.where(take, slots, n_frames), flat)
+            seen.index_fill_(0, torch.where(ok, slots, n_frames), True)
+            per_step.append(m)
+        out = _stack(per_step)
+        out["depth_frames"] = buf[:n_frames]
+        out["frames_seen"] = seen[:n_frames]
+        return out
+
+    def _eval_epoch_dedup(self, data, idx, valid):
+        """Deduplicated eval pass (JAX engine :340-437): each resident
+        frame forwarded once, then every pair's loss joined against the
+        resulting depth buffer.
+
+        phase 1: train-mode forwards of (fsteps, B, 2) frame chunks, shaped
+            like the pair batches so that the backbone sees the train
+            step's conv shapes (BN stats thread through); the padding
+            entries point at the dump row ``n_frames``, and the image
+            gather is clamped to the last frame;
+        phase 2: the loss alone over the pair batches, depths gathered from
+            the buffer.
+
+        Contract deviations from the paired pass (both harmless for
+        consumers that gate on ``frames_seen``, as ``process_eval`` does):
+        (a) ``depth_frames`` rows of frames in no valid pair carry real
+        depths here (the paired pass leaves them zero); (b) the BN running
+        stats are updated from every resident frame, frames in no pair and
+        the clamped padding duplicates included, not only pair frames."""
+        n_frames, H, W = data["frames"].shape[:3]
+        dev = self.model.device
+        S, B = idx.shape
+        per = 2 * B
+        fsteps = max(1, -(-n_frames // per))
+        fslots = np.full((fsteps * per,), n_frames, np.int64)
+        fslots[:n_frames] = np.arange(n_frames)
+        frame_idx = self._upload(fslots.reshape(fsteps, B, 2), torch.long)
+
+        # per-frame scales recovered from the per-pair (P, 2) array: scales
+        # are a per-frame quantity, the pair array only gathers them; frames
+        # in no pair keep 1.0
+        frame_scales = None
+        if "scales" in data:
+            frame_scales = torch.ones((n_frames + 1,), dtype=torch.float32,
+                                      device=dev)
+            frame_scales[data["pair_slots"].reshape(-1).long()] = \
+                data["scales"].reshape(-1).float()
+
+        buf = torch.zeros((n_frames + 1, H, W), dtype=torch.float32,
+                          device=dev)
+        for c in range(fsteps):
+            slots = frame_idx[c]
+            images = data["frames"][torch.clamp(slots, max=n_frames - 1)]
+            scales = frame_scales[slots] if frame_scales is not None else None
+            depth = self.model.apply(images, scales=scales, train=True)
+            buf.index_copy_(0, slots.reshape(-1),
+                            depth.float().reshape(per, H, W))
+
+        per_step = []
+        for s in range(S):
+            depth = buf[data["pair_slots"][idx[s]].long()]     # (B, 2, H, W)
+            loss, batch_losses = joint_loss(
+                depth, data["intrinsics"][idx[s]],
+                data["extrinsics"][idx[s]], data["flows"][idx[s]],
+                data["masks"][idx[s]], self.weights, params=self.params,
+                params_init=self.params_init, valid=valid[s])
+            per_step.append({"loss": loss,
+                             "pair_ids": data["pair_ids"][idx[s]],
+                             **batch_losses})
+        out = _stack(per_step)
+        # frames_seen: frames of any VALID pair, as the paired pass
+        slots = data["pair_slots"][idx.reshape(-1)].reshape(-1).long()
+        ok = (valid.reshape(-1) > 0)[:, None].expand(-1, 2).reshape(-1)
+        seen = torch.zeros((n_frames + 1,), dtype=torch.bool, device=dev)
+        seen.index_fill_(0, torch.where(ok, slots, n_frames), True)
+        out["depth_frames"] = buf[:n_frames].to(self._dump_dtype)
+        out["frames_seen"] = seen[:n_frames]
+        return out
+
+    # -- inference and state ----------------------------------------------
+    @torch.no_grad()
+    def infer(self, images) -> torch.Tensor:
+        """Eval-mode inference (the save_depth path; BN uses the running
+        stats, reference depth_fine_tuning.py:182-196): images (B, N, H, W,
+        3), a host array or a tensor, -> depth (B, N, H, W) on the device."""
+        self._policy()
+        if not torch.is_tensor(images):
+            images = self._upload(images, torch.float32)
+        return self.model.apply(images, train=False)
+
+    def variables_of(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict`` (parameters and BN running stats),
+        cloned on the device: a snapshot that later steps, which update
+        the live tensors in place, leave as it is."""
+        return _clone(dict(self.model.net.state_dict()))
+
+    def state_dict(self) -> Dict[str, Any]:
+        """A device snapshot of the full training state: the model's and
+        the optimizer's ``state_dict`` and ``step``."""
+        return {"model": self.variables_of(),
+                "optimizer": _clone(self.optimizer.state_dict()),
+                "step": self.step}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Restore a state written by :meth:`state_dict` (on any device)."""
+        self.model.net.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+

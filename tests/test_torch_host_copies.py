@@ -1,26 +1,37 @@
 """The port's copies of the JAX package's host helpers against the
 originals: pair sampling over a frame range, the pair-batch iterator, the
-``.raw`` float32 codec, the flow resize and homography composition, and
-the colour wheel and host flow renderer.
+``.raw`` float32 codec, the flow resize and homography composition, the
+colour wheel and host flow renderer, the depth visualisation and its magma
+table, the TensorBoard event writer, and the dataset loaders.
 
-Both sides are plain numpy (and OpenCV for the flow helpers) computing the
-same arithmetic in the same order, so every comparison is exact."""
+Both sides are plain numpy (and OpenCV for the image helpers) computing
+the same arithmetic in the same order, so every comparison is exact."""
+
+import os
+from os.path import join as pjoin
 
 import numpy as np
 import pytest
 
+import synthetic
+from consistent_depth_tpu.data import video_dataset as jax_video_dataset
 from consistent_depth_tpu.data.video_dataset import (
     PairBatchIterator as JaxPairBatchIterator)
 from consistent_depth_tpu.flow import backends as jax_backends
 from consistent_depth_tpu.io import image_io as jax_image_io
 from consistent_depth_tpu.ops import flow_viz as jax_flow_viz
+from consistent_depth_tpu.training import summaries as jax_summaries
 from consistent_depth_tpu.utils import frame_range as jax_frame_range
 from consistent_depth_tpu.utils import frame_sampling as jax_sampling
+from consistent_depth_tpu.utils import visualization as jax_visualization
+from consistent_depth_tpu_torch.data import video_dataset
 from consistent_depth_tpu_torch.data.video_dataset import PairBatchIterator
 from consistent_depth_tpu_torch.flow import backends
 from consistent_depth_tpu_torch.io import image_io
 from consistent_depth_tpu_torch.ops import flow_viz
-from consistent_depth_tpu_torch.utils import frame_range, frame_sampling
+from consistent_depth_tpu_torch.training import summaries
+from consistent_depth_tpu_torch.utils import (
+    frame_range, frame_sampling, visualization)
 
 
 def _pairs(fr, fs, mode, num_frames, two_way, subset):
@@ -113,3 +124,115 @@ def test_color_wheel_and_host_renderer_match_jax():
     got = flow_viz.flow_to_image(flow)
     assert got.dtype == np.uint8 and got.shape == (20, 30, 3)
     np.testing.assert_array_equal(got, jax_flow_viz.flow_to_image(flow))
+
+
+def test_magma_table_matches_jax():
+    lut = jax_visualization._magma_lut()
+    assert visualization.MAGMA_LUT.shape == (256, 3)
+    assert visualization.MAGMA_LUT.dtype == np.uint8
+    np.testing.assert_array_equal(visualization.MAGMA_LUT, lut[:, 0])
+
+
+def _read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def test_visualize_depth_matches_jax(tmp_path):
+    import cv2
+
+    rng = np.random.default_rng(3)
+    depth = rng.uniform(0.5, 4.0, (24, 40)).astype(np.float32)
+    depth[0, :2] = [np.nan, -1.0]
+    for lo, hi in ((None, None), (0.0, 2.0)):
+        got = visualization.visualize_depth(depth, lo, hi)
+        assert got.dtype == np.uint8 and got.shape == (24, 40, 3)
+        np.testing.assert_array_equal(
+            got, jax_visualization.visualize_depth(depth, lo, hi))
+    for side, module in (("port", visualization), ("jax", jax_visualization)):
+        src = tmp_path / side
+        src.mkdir()
+        for i in range(3):
+            image_io.save_raw_float32_image(
+                str(src / f"frame_{i:06d}.raw"), depth * (i + 1))
+        module.visualize_depth_dir(str(src), str(src), force=True,
+                                   min_percentile=1, max_percentile=99)
+    for i in range(3):
+        name = f"frame_{i:06d}.png"
+        assert (_read_bytes(tmp_path / "port" / name)
+                == _read_bytes(tmp_path / "jax" / name)), name
+        assert cv2.imread(str(tmp_path / "port" / name)).shape == (24, 40, 3)
+
+
+def test_summary_writer_bytes_match_jax(tmp_path, monkeypatch):
+    """The same scalars, images and histogram give the same event-file
+    name and bytes from both writers (the clock patched)."""
+    rng = np.random.default_rng(4)
+    image = rng.random((3, 10, 14), dtype=np.float32)
+    grid = summaries.make_image_grid(rng.random((5, 6, 7, 1)), normalize=True)
+    values = rng.standard_normal(200)
+    files = {}
+    for side, module in (("port", summaries), ("jax", jax_summaries)):
+        monkeypatch.setattr(module.time, "time", lambda: 1700000000.25)
+        log_dir = tmp_path / side
+        with module.SummaryWriter(str(log_dir)) as w:
+            w.add_scalar("Train/loss", 0.125, 3)
+            w.add_scalar("validation/disparity/mean", np.float32(2.5), 7)
+            w.add_image("Train/image", image, 3)
+            w.add_image("Train/pred_full", grid, 4)
+            w.add_histogram("validation/reprojection", values, 7)
+        (name,) = os.listdir(log_dir)
+        files[side] = (name, _read_bytes(log_dir / name))
+    assert files["port"] == files["jax"]
+
+
+def test_make_image_grid_matches_jax():
+    rng = np.random.default_rng(5)
+    images = rng.random((11, 6, 7, 3)).astype(np.float32)
+    for kw in ({}, {"normalize": True}, {"nrow": 4, "pad": 1}):
+        np.testing.assert_array_equal(
+            summaries.make_image_grid(images, **kw),
+            jax_summaries.make_image_grid(images, **kw))
+
+
+@pytest.fixture(scope="module")
+def tiny_dataset(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("dataset"))
+    scene = synthetic.make_scene(num_frames=5, H=16, W=32)
+    synthetic.write_dataset_dir(path, scene, synthetic.make_pairs(5))
+    return path
+
+
+def test_video_pair_dataset_matches_jax(tiny_dataset):
+    meta = pjoin(tiny_dataset, "metadata.npz")
+    scales = {i: 1.0 + 0.1 * i for i in range(5)}
+    for kw in ({}, {"scales": scales}, {"scales": 2.0}):
+        got = video_dataset.VideoPairDataset(tiny_dataset, meta, **kw)
+        want = jax_video_dataset.VideoPairDataset(tiny_dataset, meta, **kw)
+        assert got.pairs == want.pairs and len(got) == 7
+        a, b = got.load(), want.load()
+        assert a.num_pairs == b.num_pairs == 7
+        for k, v in b.__dict__.items():
+            if v is None:
+                assert getattr(a, k) is None, k
+                continue
+            assert getattr(a, k).dtype == v.dtype, k
+            np.testing.assert_array_equal(getattr(a, k), v, err_msg=k)
+    # without metadata the cameras are zeros
+    a = video_dataset.VideoPairDataset(tiny_dataset).load()
+    assert not a.intrinsics.any() and a.intrinsics.shape == (7, 2, 4)
+
+
+def test_video_frame_dataset_matches_jax(tiny_dataset):
+    fmt = pjoin(tiny_dataset, "color_down", "frame_{:06d}.raw")
+    got = video_dataset.VideoFrameDataset(fmt)
+    want = jax_video_dataset.VideoFrameDataset(fmt, range(5))
+    assert len(got) == len(want) == 5
+    for indices in ([0, 1, 2, 3], [4]):
+        (ga, gi), (wa, wi) = got.load_batch(indices), want.load_batch(indices)
+        assert gi == wi and ga.dtype == wa.dtype == np.float32
+        np.testing.assert_array_equal(ga, wa)
+    png = video_dataset.load_color(pjoin(tiny_dataset, "color_down_png",
+                                         "frame_000002.png"))
+    np.testing.assert_array_equal(png, jax_video_dataset.load_color(
+        pjoin(tiny_dataset, "color_down_png", "frame_000002.png")))

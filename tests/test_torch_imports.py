@@ -31,14 +31,15 @@ def _port_modules():
 def _forbidden_after(statements, forbid_cv2):
     """Run ``statements`` in a fresh interpreter at the repository root and
     return its exit status and the forbidden modules it then holds: jax,
-    flax, any module of the JAX package outside JAX_FREE_HELPERS, and with
+    flax, matplotlib (the port carries the magma colour map as data), any
+    module of the JAX package outside JAX_FREE_HELPERS, and with
     ``forbid_cv2`` OpenCV."""
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO_ROOT!r})\n"
         + "".join(f"{line}\n" for line in statements) +
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'flax')) or "
+        "m.startswith(('jax.', 'flax', 'matplotlib')) or "
         f"({forbid_cv2!r} and (m == 'cv2' or m.startswith('cv2.'))) or "
         "(m.split('.')[0] == 'consistent_depth_tpu' "
         f"and m not in {JAX_FREE_HELPERS!r}))\n"
@@ -56,8 +57,10 @@ def test_port_imports_without_jax():
               "flow.backends", "ops.resample", "ops.geometry",
               "ops.consistency", "ops.flow_viz", "pipeline.flow_stage",
               "ops.losses", "training", "training.engine",
-              "training.optimizer", "io.image_io", "utils.frame_range",
-              "utils.frame_sampling", "data.video_dataset"):
+              "training.optimizer", "training.fine_tuning",
+              "training.checkpoints", "training.summaries",
+              "io.image_io", "utils.frame_range", "utils.frame_sampling",
+              "utils.visualization", "data.video_dataset"):
         assert "consistent_depth_tpu_torch." + m in mods
     assert JAX_FREE_HELPERS == []
     proc = _forbidden_after(

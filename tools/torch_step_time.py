@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Times the port's bf16 ``mc`` train step, which the host's issue rate
-bounds, on one H100 for the checkout given by ``--repo`` (default: this
-one), so that two commits can be compared in one call, in turns, each in
-its own process (parent, change, change, parent).
+"""Times the port's ``mc`` train step (bf16 by default, whose time the
+host's issue rate bounds) on one H100 for the checkout given by ``--repo``
+(default: this one), so that two commits can be compared in one call, in
+turns, each in its own process (parent, change, change, parent).
 
 The workload is ``chip_smoke.py``'s (``bench.py::make_workload``'s demo data
 rebuilt from the same seeded recipe, 244 frames at 224x384, 715 pairs,
 batch 4 pairs, the seeded ``mc`` init with the tamed head, Adam at 4e-4),
 taken from the checkout's own ``chip_smoke.py``. After 3 warm-up steps it
 times 3 runs of 20 steps: CUDA events over each run (ms per step), the host
-clock, and the host's wait in the NaN-skip flag read. It prints one JSON
-line with the card's name and power limit.
+clock, the host's time to queue the steps, and, for a checkout whose
+NaN-skip reads a flag on the host, its wait in that read. It prints one
+JSON line with the card's name and power limit.
 
 Usage, from the root of a checkout on the card:
-``python3 tools/torch_step_time.py [--repo build/parent]``
+``python3 tools/torch_step_time.py [--repo build/parent] [--precision f32]``
 """
 
 import argparse
@@ -31,6 +32,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--repo", default=str(Path(__file__).resolve()
                                               .parent.parent))
+    parser.add_argument("--precision", choices=["bf16", "f32"],
+                        default="bf16")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import torch
@@ -52,7 +55,7 @@ def main():
     engine = training.TrainingEngine(
         model, training.create_optimizer("Adam", cs.TRAIN_LR),
         LossWeights(lambda_view_baseline=0.1, lambda_reprojection=1.0),
-        precision="bf16")
+        precision=args.precision)
     data = engine.put_data(workload)
     n_pairs = len(workload["pair_ids"])
     batches = list(islice(training.PairBatchIterator(
@@ -66,18 +69,23 @@ def main():
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        engine.flag_wait_s = 0.0
+        reads_flag = hasattr(engine, "flag_wait_s")
+        if reads_flag:
+            engine.flag_wait_s = 0.0
         t0 = time.perf_counter()
         start.record()
         for idx, valid in timed:
             engine.train_step(data, idx, valid)
+        issued = time.perf_counter() - t0
         end.record()
         torch.cuda.synchronize()
         runs.append({
             "ms_per_step": start.elapsed_time(end) / len(timed),
             "host_ms_per_step": 1e3 * (time.perf_counter() - t0) / len(timed),
-            "flag_wait_ms_per_step": 1e3 * engine.flag_wait_s / len(timed)})
-    print(json.dumps({"repo": args.repo, "precision": "bf16",
+            "host_issue_ms_per_step": 1e3 * issued / len(timed),
+            "flag_wait_ms_per_step": (1e3 * engine.flag_wait_s / len(timed)
+                                      if reads_flag else None)})
+    print(json.dumps({"repo": args.repo, "precision": args.precision,
                       "steps": STEPS, "runs": runs,
                       "nvidia_smi": cs.nvidia_smi_line()}), flush=True)
 
