@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100 (sm_90a).
 
-Drives the port's three paths with random weights from a seed, each at
+Drives the port's four paths with random weights from a seed, each at
 its model's full width, and checks every hand-written kernel on them
 against its plain PyTorch version:
 
@@ -23,7 +23,12 @@ against its plain PyTorch version:
   fine-tune's default precision, then the driver ``DepthFineTuner``
   (epochs, eval passes, checkpoints, resume, ``save_depth``) on a scratch
   dataset directory of 24 such frames (the same kernels, forward and
-  grad-input).
+  grad-input);
+- the whole pipeline through the port's CLI, ``python -m
+  consistent_depth_tpu_torch`` (``cli.main.main``): downscaling, initial
+  depth, scale calibration, FlowNet2 on the missing pairs, masks, pair
+  filter, visualisations, fine-tuning and final depth, on a scratch
+  dataset of 24 frames of a synthetic plane scene (every kernel above).
 
 Phases, each printing one JSON line:
 
@@ -49,12 +54,13 @@ Phases, each printing one JSON line:
    gives against ``correlation_reference`` in f32 at the shape recorded
    from one FlowNet2 forward at 448x1024 (1x56x128x256), at
    2x56x128x256, at 1x72x128x256 (the 576x1024 feed), at a ragged
-   1x7x13x64, with max displacement 4, at a ragged 1x28x130x256 (banded),
-   with stride 1 and with C = 66 (generic); each row with its route, the
-   times from CUDA events and the kernel's device time from events around
-   calls queued behind a sleep kernel; then at 1x56x128x256 the banded kernel with each
-   dy-group size G of ``GROUPS`` and the generic kernel (the first port's
-   design) on the same inputs;
+   1x7x13x64, with max displacement 4, at a ragged 1x28x130x256 and at
+   1x56x96x256, phase 11's 448x768 feed (banded), with stride 1 and with
+   C = 66 (generic); each row with its route, the times from CUDA events
+   and the kernel's device time from events around calls queued behind a
+   sleep kernel; then at 1x56x128x256 the banded kernel with each dy-group
+   size G of ``GROUPS`` and the generic kernel (the first port's design) on
+   the same inputs;
 6. flow: FlowNet2 on four directed pairs of 448x1024 frames: shapes,
    finite flow, one correlation launch per pair, all on the banded route,
    agreement with the same
@@ -100,15 +106,43 @@ Phases, each printing one JSON line:
    weights), 24 final depths, a TensorBoard event file, the launches of
    each run, wall seconds per epoch and per eval; the directory is then
    deleted and the driver's console output kept in
-   ``build/chip_smoke_driver.log``.
+   ``build/chip_smoke_driver.log``;
+11. cli: under ``build/chip_smoke_cli/`` a reference-layout dataset of the
+   plane scene of ``tests/synthetic.py::make_scene`` (rebuilt here with
+   numpy and the port's geometry): 24 frames at 224x384, ``color_full`` at
+   448x768, COLMAP's poses and inverse depth, exact flows for every
+   two-way hierarchical2 pair but those within frames 0-3; the tamed
+   seeded ``mc`` weights and the seeded FlowNet2 as ``mc.pth`` and
+   ``flownet2.pth`` under a scratch ``CDTPU_CHECKPOINT_DIR``. Then
+   ``cli.main.main(["--path", d, "--num_epochs", "2", "--resume"])``
+   in-process at the CLI's defaults: the artifact tree of
+   ``tests/test_pipeline_e2e.py::test_full_pipeline`` with the tag
+   ``B0.1_R1.0_PL1-0_LR0.0004_BS4_Oadam``, every exact pair in
+   ``flow_list.json``, the scales against numpy's ``nanmedian`` of the same
+   files (1e-6), ``0001.pth`` and ``0002.pth`` loading strict, finite final
+   depths, one banded correlation per FlowNet2 pair at phase 5's
+   1x56x96x256 case, finite FlowNet2 flows of the depth size, the first
+   FlowNet2 pair against the same pair through ``correlation_reference``,
+   68 forward launches per forward and 67 grad-input launches per step by
+   the plan's route, the first two initial depths against the port on the
+   CPU, and seconds per stage; then ``python -m consistent_depth_tpu_torch`` again on the
+   directory: exit 0, every stage before fine-tuning finding its outputs
+   (no file outside the tag directory touched), no train step; and the
+   same command under ``CUDA_VISIBLE_DEVICES=""`` exiting non-zero with
+   the port's no-card message before it writes. The directory is deleted,
+   the CLI's console kept in ``build/chip_smoke_cli.log``.
 
 Then the card's name and power limit as nvidia-smi prints them, a
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` line, whose launches add up each path's run (one
+phase-9 epoch per precision and phase 11 for the conv, phase 6 and phase
+11 for the correlation; ``launches_by_path`` splits them), and last
+``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 
 Usage, from the root of a checkout: ``python3 chip_smoke.py``
 """
 
+import io
 import json
 import math
 import os
@@ -166,7 +200,8 @@ QUEUE_SLEEP_CYCLES = 20_000_000
 QUEUE_MAX_HOST_S = 0.008
 QUEUE_TRIES = 4
 # (name, (B, H, W, C), max_displacement, stride, route); the first is
-# checked against the shape recorded from the FlowNet2 forward
+# checked against the shape recorded from the FlowNet2 forward of phase 6,
+# CLI_CORR_CASE against those of phase 11
 CORR_CASES = [
     ("flownet2_448x1024", (1, 56, 128, 256), 20, 2, "banded"),
     ("bench_2x56x128", (2, 56, 128, 256), 20, 2, "banded"),
@@ -176,7 +211,10 @@ CORR_CASES = [
     ("stride_1", (1, 28, 64, 64), 4, 1, "generic"),
     ("channels_66", (1, 28, 64, 66), 20, 2, "generic"),
     ("ragged_w130", (1, 28, 130, 256), 20, 2, "banded"),
+    ("cli_448x768", (1, 56, 96, 256), 20, 2, "banded"),
 ]
+# the case of phase 11's FlowNet2 calls (its 448x768 feed)
+CLI_CORR_CASE = "cli_448x768"
 # FlowNet2 with the kernel against FlowNet2 with correlation_reference, and
 # the card against the CPU: max |d| / max |flow|, the cascade band of
 # tests/test_torch_flownet.py (only summation orders differ)
@@ -237,6 +275,21 @@ FT_FRAMES = 24
 FT_EPOCHS = 2
 FT_DISPLAY_FREQ = 20
 FT_TAG = "B0.1_R1.0_PL1-0_LR0.0004_BS4_Oadam"
+# CLI path (phase 11): the plane scene of tests/synthetic.py::make_scene at
+# the demo's depth size, its colour frames at twice that; the CLI's
+# defaults (mc, --size 384, hierarchical2, f32, batch 4, lr 4e-4) with two
+# epochs and --resume; FlowNet2 computes the flows of the pairs within
+# frames 0-3, the others are exact. The scales against numpy's nanmedian of
+# the same files: one f32 ratio per pixel, the median of an even count
+# being the mean of two.
+CLI_FRAMES = 24
+CLI_SIZE = (224, 384)
+CLI_FULL_SIZE = (448, 768)
+CLI_FLOWNET_FRAMES = (0, 1, 2, 3)
+CLI_EPOCHS = 2
+CLI_ARGS = ["--num_epochs", str(CLI_EPOCHS), "--resume"]
+CLI_TAG = "B0.1_R1.0_PL1-0_LR0.0004_BS4_Oadam"
+TOL_CLI_SCALES = 1e-6
 
 
 def require(cond, what: str) -> None:
@@ -1318,7 +1371,6 @@ def run_driver(training, range_dir, checkpoint, epochs, log,
     output goes to ``log``. Returns the driver, its wall seconds, its
     console text and the seconds of save_depth (or None)."""
     import argparse
-    import io
 
     parser = training.DepthFineTuningParams.add_arguments(
         argparse.ArgumentParser())
@@ -1464,6 +1516,425 @@ def _driver_checks(torch, smi, training, s2d_conv, image_io, torch_import,
     return result
 
 
+def make_plane_scene(torch, geometry, n, size, seed=0):
+    """``tests/synthetic.py::make_scene`` rebuilt on the port's geometry: a
+    textured plane at world z = -2 seen by a camera that translates along x
+    and turns about y. Frames (n, H, W, 3) RGB in [0, 1], depths (n, H, W),
+    intrinsics (n, 4), extrinsics (n, 3, 4). The texture and the poses do
+    not depend on the size, so one seed gives the same scene at any
+    size."""
+    H, W = size
+    rng = np.random.default_rng(seed)
+    intrinsics = np.tile(np.array([W * 1.2, W * 1.2, (W - 1) / 2,
+                                   (H - 1) / 2], np.float32), (n, 1))
+    n1 = max(n - 1, 1)
+    rot_step, tx_step, ty_step = (min(0.02, 0.4 / n1), min(0.08, 1.2 / n1),
+                                  min(0.01, 0.15 / n1))
+    extrinsics = []
+    for i in range(n):
+        a = rot_step * i
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        t = np.array([tx_step * i, ty_step * i, 0.0])
+        extrinsics.append(np.concatenate([R, t[:, None]], 1))
+    extrinsics = np.stack(extrinsics).astype(np.float32)
+    coefs = rng.standard_normal((3, 6))
+    freqs = rng.uniform(0.5, 3.0, (2, 6))
+    phases = rng.uniform(0, 2 * np.pi, 6)
+    pixels = geometry.pixel_grid((H, W))
+    frames, depths = [], []
+    for i in range(n):
+        rays = geometry.pixels_to_rays(
+            pixels, torch.from_numpy(intrinsics[i])).numpy()
+        R, t = extrinsics[i][:, :3], extrinsics[i][:, 3]
+        dirs = rays @ R.T
+        lam = (-2.0 - t[2]) / dirs[..., 2]
+        pts = t + lam[..., None] * dirs
+        arg = (pts[..., :1] * freqs[0] + pts[..., 1:2] * freqs[1] + phases)
+        tex = 0.5 + 0.25 * np.einsum("...k,ck->...c", np.sin(arg), coefs)
+        frames.append(np.clip(tex, 0, 1).astype(np.float32))
+        depths.append(lam.astype(np.float32))
+    return {"frames": np.stack(frames), "depths": np.stack(depths),
+            "intrinsics": intrinsics, "extrinsics": extrinsics}
+
+
+def write_cli_dataset(torch, mods, work_dir, init_sd):
+    """A reference-layout dataset for the CLI, as ``tests/synthetic.py::
+    build_e2e_dataset`` writes one, at CLI_SIZE with colour frames at
+    CLI_FULL_SIZE: frames.txt, color_full/*.png, COLMAP's poses and inverse
+    depth, and exact flows for every two-way hierarchical2 pair except those
+    within CLI_FLOWNET_FRAMES, which FlowNet2 computes. The tamed seeded
+    ``mc`` weights and the seeded FlowNet2 go into a checkpoint directory.
+    Returns the exact pairs, the FlowNet2 pairs and the checkpoint
+    directory."""
+    import cv2
+
+    geometry, image_io, fs, fr = (mods["geometry"], mods["image_io"],
+                                  mods["frame_sampling"], mods["frame_range"])
+    n = CLI_FRAMES
+    full = make_plane_scene(torch, geometry, n, CLI_FULL_SIZE)["frames"]
+    scene = make_plane_scene(torch, geometry, n, CLI_SIZE)
+    H, W = CLI_FULL_SIZE
+    with open(os.path.join(work_dir, "frames.txt"), "w") as f:
+        f.write(f"{n}\n{W}\n{H}\n" + "".join(f"{i / 30:.6f}\n"
+                                             for i in range(n)))
+    for sub in ("color_full", "colmap_dense", "flow",
+                os.path.join("depth_colmap_dense", "depth")):
+        os.makedirs(os.path.join(work_dir, sub))
+    for i in range(n):
+        cv2.imwrite(os.path.join(work_dir, "color_full", f"frame_{i:06d}.png"),
+                    (full[i][..., ::-1] * 255).astype(np.uint8))
+        image_io.save_raw_float32_image(
+            os.path.join(work_dir, "depth_colmap_dense", "depth",
+                         f"frame_{i:06d}.raw"), 1.0 / scene["depths"][i])
+    np.savez(os.path.join(work_dir, "colmap_dense", "metadata.npz"),
+             intrinsics=scene["intrinsics"], extrinsics=scene["extrinsics"])
+    pairs = fs.SamplePairs.sample(
+        [fs.SamplePairsOptions(fs.SamplePairsMode.HIERARCHICAL2)],
+        fr.FrameRange(fr.OptionalSet(), num_frames=n), two_way=True)
+    exact = sorted(p for p in map(tuple, pairs)
+                   if not set(p) <= set(CLI_FLOWNET_FRAMES))
+    flownet = sorted(set(map(tuple, pairs)) - set(exact))
+    pixels = geometry.pixel_grid(CLI_SIZE).numpy()
+    for i, j in exact:
+        idx = [i, j]
+        uv = geometry.warping_field(
+            *(torch.from_numpy(scene[k][idx])
+              for k in ("extrinsics", "intrinsics", "depths")), [1, 0])
+        image_io.save_raw_float32_image(
+            os.path.join(work_dir, "flow", f"flow_{i:06d}_{j:06d}.raw"),
+            uv[0].numpy() - pixels)
+    ckpt_dir = os.path.join(work_dir, "checkpoints")
+    os.makedirs(ckpt_dir)
+    mods["torch_import"].save_checkpoint(os.path.join(ckpt_dir, "mc.pth"),
+                                         init_sd)
+    flownet2 = mods["TorchFlowBackend"](checkpoint=None, full=True,
+                                        homography=False, seed=0,
+                                        device="cpu")
+    mods["torch_import"].save_checkpoint(
+        os.path.join(ckpt_dir, "flownet2.pth"), flownet2.net.state_dict())
+    return exact, flownet, ckpt_dir
+
+
+def tree_mtimes(root, skip=None):
+    """Every file under ``root`` (outside ``skip``) with its mtime in ns."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        if skip is not None and (dirpath + os.sep).startswith(skip + os.sep):
+            continue
+        for f in files:
+            p = os.path.join(dirpath, f)
+            out[p] = os.stat(p).st_mtime_ns
+    return out
+
+
+def run_cli_module(work_dir, ckpt_dir, env_extra):
+    """``python -m consistent_depth_tpu_torch`` on ``work_dir`` in a process
+    of its own, from the checkout's root; returns it after it ends."""
+    env = dict(os.environ, CDTPU_CHECKPOINT_DIR=ckpt_dir, **env_extra)
+    return subprocess.run(
+        [sys.executable, "-m", "consistent_depth_tpu_torch", "--path",
+         work_dir, *CLI_ARGS], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=600)
+
+
+def cli_modules(training):
+    """The port's modules that phase 11 drives and reads, by name."""
+    from consistent_depth_tpu_torch.cli import main as cli_main
+    from consistent_depth_tpu_torch.data.video_dataset import (
+        VideoFrameDataset)
+    from consistent_depth_tpu_torch.flow.runner import TorchFlowBackend
+    from consistent_depth_tpu_torch.io import image_io, metadata_io
+    from consistent_depth_tpu_torch.models import torch_import
+    from consistent_depth_tpu_torch.models.registry import (
+        create_depth_model)
+    from consistent_depth_tpu_torch.ops import geometry
+    from consistent_depth_tpu_torch.pipeline import process
+
+    return {"cli_main": cli_main, "process": process, "geometry": geometry,
+            "image_io": image_io, "metadata_io": metadata_io,
+            "torch_import": torch_import,
+            "frame_range": training.frame_range,
+            "frame_sampling": training.frame_sampling,
+            "TorchFlowBackend": TorchFlowBackend,
+            "VideoFrameDataset": VideoFrameDataset,
+            "create_depth_model": create_depth_model}
+
+
+def cli_path(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
+             device="cuda"):
+    """Phase 11: the whole pipeline through the port's CLI on a scratch
+    dataset directory, run in-process and then again as ``python -m``; the
+    artifacts, the scales and the launches checked, the directory deleted
+    and the CLI's console kept in ``build/chip_smoke_cli.log``."""
+    work_dir = os.path.join(REPO, "build", "chip_smoke_cli")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    try:
+        return _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward,
+                           init_sd, device, work_dir)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+
+def _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
+                device, work_dir):
+    import cv2
+
+    image_io, metadata_io, process = (mods["image_io"], mods["metadata_io"],
+                                      mods["process"])
+    t0 = time.perf_counter()
+    exact, flownet, ckpt_dir = write_cli_dataset(torch, mods, work_dir,
+                                                 init_sd)
+    write_s = time.perf_counter() - t0
+    log_path = os.path.join(REPO, "build", "chip_smoke_cli.log")
+
+    stage_s = {}
+    orig_execute = process.Stage.execute
+
+    def timed_execute(stage, state):
+        t = time.perf_counter()
+        orig_execute(stage, state)
+        stage_s[stage.name] = time.perf_counter() - t
+
+    corr_calls = []
+    orig_corr = corr.correlation
+
+    def recording(f1, f2, max_displacement=20, stride=2):
+        corr_calls.append((tuple(f1.shape), max_displacement, stride))
+        return orig_corr(f1, f2, max_displacement, stride)
+
+    saved_env = os.environ.get("CDTPU_CHECKPOINT_DIR")
+    os.environ["CDTPU_CHECKPOINT_DIR"] = ckpt_dir
+    process.Stage.execute = timed_execute
+    corr.correlation = recording
+    s2d_conv.reset_counts()
+    corr.launches = 0
+    corr.route_counts.update(dict.fromkeys(corr.route_counts, 0))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with redirect_stdout(out):
+            initial_dir, tag_dir, frames = mods["cli_main"].main(
+                ["--path", work_dir, *CLI_ARGS], device=device)
+    finally:
+        process.Stage.execute = orig_execute
+        corr.correlation = orig_corr
+        if saved_env is None:
+            os.environ.pop("CDTPU_CHECKPOINT_DIR")
+        else:
+            os.environ["CDTPU_CHECKPOINT_DIR"] = saved_env
+        with open(log_path, "w") as log:
+            log.write(out.getvalue())
+    wall = time.perf_counter() - t0
+    launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    conv_routes = dict(s2d_conv.route_counts)
+    corr_launches, corr_routes = corr.launches, dict(corr.route_counts)
+
+    # the artifact tree of tests/test_pipeline_e2e.py::test_full_pipeline
+    range_dir = os.path.dirname(tag_dir)
+    n = CLI_FRAMES
+    missing = [p for i in range(n) for p in (
+        os.path.join(initial_dir, "depth", f"frame_{i:06d}.raw"),
+        os.path.join(tag_dir, "depth", f"frame_{i:06d}.raw"))
+        if not os.path.isfile(p)]
+    scales = metadata_io.read_scales_csv(os.path.join(range_dir,
+                                                      "scales.csv"))
+    meta = metadata_io.read_metadata(os.path.join(range_dir,
+                                                  "metadata_scaled.npz"))
+    flow_list = set(map(tuple, metadata_io.read_flow_list(
+        os.path.join(work_dir, "flow_list.json"))))
+    evals = sorted(f for f in os.listdir(os.path.join(tag_dir, "eval"))
+                   if f.startswith("loss_e") and f.endswith(".json"))
+    losses_ok = True
+    for name in evals:
+        with open(os.path.join(tag_dir, "eval", name)) as f:
+            d = json.load(f)
+        losses_ok &= set(d) == {"reprojection", "disparity", "mean"}
+        losses_ok &= all(math.isfinite(v) for sub in d.values()
+                         for v in sub.values())
+    vis = {sub: len(os.listdir(os.path.join(base, sub)))
+           for base, sub in ((work_dir, "vis_flow"),
+                             (work_dir, "vis_flow_warped"),
+                             (range_dir, "vis_calibration_dense"))}
+    pth_ok = True
+    for e in (1, 2):
+        # strict=True inside the model's constructor
+        m = mods["create_depth_model"](
+            "mc", checkpoint=os.path.join(tag_dir, "checkpoints",
+                                          f"{e:04d}.pth"), device="cpu")
+        pth_ok &= len(m.net.state_dict()) > 0
+    final = [image_io.load_raw_float32_image(
+        os.path.join(tag_dir, "depth", f"frame_{i:06d}.raw"))
+        for i in range(n)]
+    final_finite = all(bool(np.isfinite(d).all()) for d in final)
+
+    # the scales against numpy's nanmedian of the same files
+    src = [image_io.load_raw_float32_image(os.path.join(
+        initial_dir, "depth", f"frame_{i:06d}.raw")) for i in range(n)]
+    want_scales = []
+    for i in range(n):
+        cmp = cv2.resize(image_io.load_raw_float32_image(os.path.join(
+            work_dir, "depth_colmap_dense", "depth", f"frame_{i:06d}.raw")),
+            src[i].shape[::-1], interpolation=cv2.INTER_NEAREST)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ratio = src[i] / cmp
+        want_scales.append(np.nanmedian(np.where(np.isfinite(ratio), ratio,
+                                                 np.nan)))
+    scale_err = float(np.max(np.abs(scales[:, 1] - want_scales)
+                             / np.abs(want_scales)))
+
+    # the first two initial depths on the card against the port on the CPU
+    dataset = mods["VideoFrameDataset"](
+        os.path.join(work_dir, "color_down", "frame_{:06d}.raw"), [0, 1])
+    images, _ = dataset.load_batch([0, 1])
+    cpu_model = mods["create_depth_model"](
+        "mc", checkpoint=os.path.join(ckpt_dir, "mc.pth"), device="cpu")
+    with torch.inference_mode():
+        d_cpu = 1.0 / cpu_model.apply(torch.from_numpy(images[:, None]))[
+            :, 0].numpy()
+    cpu_err = rel_err(np.stack(src[:2]), d_cpu)
+    del cpu_model
+
+    # the FlowNet2 flows of the run: finite, at the depth size; the first
+    # pair against the same pair through correlation_reference (the backend
+    # the flow stage builds for "FlowNet2", the same frames and resize)
+    def flow_file(d, p):
+        return os.path.join(d, "flow_{:06d}_{:06d}.raw".format(*p))
+
+    net_flows = [image_io.load_raw_float32_image(
+        flow_file(os.path.join(work_dir, "flow"), p)) for p in flownet]
+    net_flows_ok = all(f.shape == (*CLI_SIZE, 2) and bool(np.isfinite(f).all())
+                       for f in net_flows)
+    ref_dir = os.path.join(work_dir, "flow_reference")
+    os.makedirs(ref_dir)
+    ref_backend = mods["TorchFlowBackend"](
+        checkpoint=os.path.join(ckpt_dir, "flownet2.pth"), homography=True,
+        device=device)
+    corr.correlation = corr.correlation_reference
+    try:
+        ref_backend.process_pairs(
+            frame_dir=os.path.join(work_dir, "color_flow"), pairs=flownet[:1],
+            out_fmt=os.path.join(ref_dir, "flow_{:06d}_{:06d}.raw"),
+            out_size=CLI_SIZE[::-1])
+    finally:
+        corr.correlation = orig_corr
+    del ref_backend
+    flow_plain_err = rel_err(net_flows[0], image_io.load_raw_float32_image(
+        flow_file(ref_dir, flownet[0])))
+    shutil.rmtree(ref_dir)
+    cli_corr_shape = next(c[1:4] for c in CORR_CASES if c[0] == CLI_CORR_CASE)
+
+    # the launches each stage makes: save_depth's batches of 4 frames for
+    # the initial and final depth, one forward per train step and per eval
+    # batch (an eval before training and after each epoch), a grad-input
+    # per train step but for the stem's
+    n_pairs = len(flow_list) // 2
+    steps = -(-n_pairs // TRAIN_BATCH)
+    forwards = 2 * -(-n // TRAIN_BATCH) + (CLI_EPOCHS + CLI_EPOCHS + 1) * steps
+    want = (per_forward * forwards, (per_forward - 1) * CLI_EPOCHS * steps)
+    tc = "tf32"             # the CLI's default precision, f32
+    want_routes = {"forward_" + tc: want[0], "grad_input_" + tc: want[1]}
+
+    # again as a process of its own: every stage before fine-tuning finds its
+    # outputs, and --resume finds the last epoch's full state
+    before = tree_mtimes(work_dir, skip=tag_dir)
+    t0 = time.perf_counter()
+    rerun = run_cli_module(work_dir, ckpt_dir, {})
+    rerun_s = time.perf_counter() - t0
+    after = tree_mtimes(work_dir, skip=tag_dir)
+    probed = ("Extracting PTS", "Extracting frames",
+              "Downscaling frames (raw)", "Downscaling frames (png)",
+              "Downscaling frames (for flow)", "Compute initial depth",
+              "Filter flow pairs", "Compute final depth")
+    rerun_text = rerun.stdout
+    rerun_ok = {
+        "exit_0": rerun.returncode == 0,
+        "probed_stages_up_to_date": all(
+            f"[{s}] outputs up to date, skipping." in rerun_text
+            for s in probed),
+        "scales_loaded": "Existing scales file loaded." in rerun_text
+        and "Scaled metadata file exists." in rerun_text,
+        "no_file_changed_before_fine_tuning": before == after,
+        "resumed": "Resumed from" in rerun_text
+        and f"(epoch {CLI_EPOCHS})" in rerun_text,
+        "no_train_step": "Epoch = " not in rerun_text,
+    }
+    # and with no card: refused before anything is written
+    before_all = tree_mtimes(work_dir)
+    refused = run_cli_module(work_dir, ckpt_dir, {"CUDA_VISIBLE_DEVICES": ""})
+    refused_ok = (refused.returncode != 0
+                  and "no CUDA device" in refused.stderr
+                  and tree_mtimes(work_dir) == before_all)
+    with open(log_path, "a") as log:
+        log.write(rerun.stdout + rerun.stderr + refused.stdout
+                  + refused.stderr)
+
+    result = {
+        "phase": "cli", "frames": n, "size": list(CLI_SIZE),
+        "full_size": list(CLI_FULL_SIZE), "args": CLI_ARGS,
+        "precision": "f32", "dataset_write_s": write_s, "wall_s": wall,
+        "stage_s": stage_s, "tag": os.path.basename(tag_dir),
+        "frames_returned": frames == list(range(n)),
+        "missing_depth_files": missing[:4],
+        "scales_rows": int(scales.shape[0]),
+        "scales_vs_numpy_nanmedian_rel_err": scale_err,
+        "tol_scales": TOL_CLI_SCALES,
+        "metadata_scaled_keys": sorted(meta),
+        "exact_pairs": len(exact), "flownet2_pairs": len(flownet),
+        "flow_list_pairs": len(flow_list),
+        "flow_list_holds_exact_pairs": set(exact) <= flow_list,
+        "eval_jsons": evals, "eval_losses_finite": losses_ok,
+        "vis_files": vis, "pth_strict_loads": pth_ok,
+        "final_depth_finite": final_finite,
+        "initial_depth_card_vs_cpu_rel_err": cpu_err, "tol_cpu": TOL_CPU_REF,
+        "launches": list(launches), "expected_launches": list(want),
+        "route_counts": conv_routes, "expected_routes": want_routes,
+        "correlation_launches": corr_launches,
+        "correlation_routes": corr_routes,
+        "correlation_calls": [list(c) for c in sorted(set(corr_calls))],
+        "correlation_case": CLI_CORR_CASE,
+        "flownet2_flows_finite": net_flows_ok,
+        "flownet2_pair": list(flownet[0]),
+        "flownet2_kernel_vs_plain_rel_err": flow_plain_err,
+        "tol_flow": TOL_FLOW,
+        "rerun": {**rerun_ok, "wall_s": rerun_s},
+        "refused_without_card": refused_ok,
+        "refused_stderr_tail": refused.stderr[-300:],
+        "log": os.path.relpath(log_path, REPO), "nvidia_smi": smi}
+    emit(result)
+    require(result["tag"] == CLI_TAG, f"CLI tag {result['tag']}")
+    require(result["frames_returned"] and not missing,
+            f"CLI depth files missing: {missing[:4]}")
+    require(scales.shape == (n, 2)
+            and set(meta) == {"intrinsics", "extrinsics", "scales"},
+            f"CLI calibration: scales {scales.shape}, metadata {sorted(meta)}")
+    require(scale_err < TOL_CLI_SCALES, f"CLI scales vs numpy {scale_err}")
+    require(set(exact) <= flow_list, "flow_list.json lost an exact pair")
+    require(len(evals) == CLI_EPOCHS + 1 and losses_ok,
+            f"CLI eval JSONs {evals}, finite {losses_ok}")
+    require(all(vis.values()), f"CLI visualisations {vis}")
+    require(pth_ok and final_finite, "CLI checkpoints or final depth")
+    require(cpu_err < TOL_CPU_REF, f"CLI initial depth card vs CPU {cpu_err}")
+    require(corr_launches == len(flownet)
+            and corr_routes == {"banded": len(flownet), "generic": 0},
+            f"CLI correlation launches {corr_routes}, expected "
+            f"{len(flownet)} banded")
+    require(corr_calls == [cli_corr_shape] * len(flownet),
+            f"CLI correlation calls {sorted(set(corr_calls))}, expected "
+            f"{len(flownet)} at {CLI_CORR_CASE} {cli_corr_shape}")
+    require(net_flows_ok, "CLI FlowNet2 flows not finite or of another size")
+    require(flow_plain_err < TOL_FLOW,
+            f"CLI FlowNet2 pair with kernel vs plain {flow_plain_err}")
+    require(tuple(launches) == want,
+            f"CLI conv launches {launches}, expected {want}")
+    require(all(conv_routes[k] == v for k, v in want_routes.items()),
+            f"CLI conv routes {conv_routes}, expected {want_routes}")
+    require(all(rerun_ok.values()), f"CLI re-run {rerun_ok}")
+    require(refused_ok, "the CLI without a card did not refuse cleanly")
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -1492,6 +1963,7 @@ def main() -> int:
         from consistent_depth_tpu_torch.pipeline.flow_stage import Flow
         from consistent_depth_tpu_torch.serving import (
             DepthServer, ServeConfig)
+        mods = cli_modules(training)
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -1783,8 +2255,14 @@ def main() -> int:
     driver_path(torch, smi, training, s2d_conv, image_io, torch_import,
                 create_depth_model, per_forward, context)
 
-    # the launches by route from one train epoch of phase 9 (179 steps), by
-    # precision; each conv entry sums its classes per batch-8 forward
+    # -- 11. the pipeline through the CLI, in-process and as python -m ------
+    torch.cuda.empty_cache()
+    cli = cli_path(torch, smi, mods, s2d_conv, corr, per_forward,
+                   context["init_sd"])
+
+    # the launches by route of each path that runs the kernel: one train
+    # epoch of phase 9 (179 steps), by precision, and the CLI's run of
+    # phase 11 (f32); each conv entry sums its classes per batch-8 forward
     # (phase 3) or per train step (phase 7), for each route the plan gives
     # a class of the main path (the FMA template, for the shapes the
     # tensor-core kernels do not take, has none at present)
@@ -1793,26 +2271,35 @@ def main() -> int:
     entries = []
     for dt in ("bf16", "f32"):
         counts = epochs[dt]["train_epoch"]["route_counts"]
+        cli_counts = (cli["route_counts"] if dt == "f32"
+                      else dict.fromkeys(cli["route_counts"], 0))
         for route in s2d_conv.ROUTES:
             suffix = ("" if dt == "bf16" else "_f32") + (
                 "_fma" if route == "fma" else "")
-            entries += [
-                conv_entry("same_conv" + suffix, conv_tpu,
-                           counts["forward_" + route], rows, "per_forward",
-                           dt, route),
-                conv_entry("same_conv_grad_input" + suffix, vjp_tpu,
-                           counts["grad_input_" + route], gx_rows,
-                           "per_step", dt, route)]
+            for name, key, rows_of, count_key, replaces in (
+                    ("same_conv", "forward_", rows, "per_forward", conv_tpu),
+                    ("same_conv_grad_input", "grad_input_", gx_rows,
+                     "per_step", vjp_tpu)):
+                by_path = {"epoch": counts[key + route],
+                           "cli": cli_counts[key + route]}
+                entry = conv_entry(name + suffix, replaces,
+                                   sum(by_path.values()), rows_of, count_key,
+                                   dt, route)
+                if entry is not None:
+                    entry["launches_by_path"] = by_path
+                entries.append(entry)
     # the correlation's two routes: the banded kernel at the main path's
     # shape, and the generic kernel on the same inputs (it has no main-path
     # launches); no one PyTorch call computes a cost volume
     for name, route, row in (("correlation", "banded", main_row),
                              ("correlation_generic", "generic", generic_row)):
+        by_path = {"flow": flow_routes[route],
+                   "cli": cli["correlation_routes"][route]}
         entries.append(
             {"name": name, "route": "cuda", "kernel_route": route,
              "source": "consistent_depth_tpu_torch/csrc/correlation.cu",
              "replaces": "consistent_depth_tpu/flow/correlation.py:116",
-             "launches": flow_routes[route],
+             "launches": sum(by_path.values()), "launches_by_path": by_path,
              "max_abs_err": max(r["max_abs_err"] for r in corr_rows
                                 if r["route"] == route),
              "ms": row["ms"], "plain_ms": row["plain_ms"],

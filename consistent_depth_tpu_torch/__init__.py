@@ -18,5 +18,10 @@ on the card unless the caller asks for the CPU. Ported so far:
 - the ``mc`` fine-tune stage (``training``): the train step and epoch, the
   eval passes, eval-mode inference, and the driver with its checkpoints,
   resume and artifacts; the k x k convs' grad-input runs through the same
-  kernels.
+  kernels;
+- the pipeline and its command line (``cli``, ``pipeline.process``,
+  ``python -m consistent_depth_tpu_torch``): the stage graph, video
+  extraction and downscaling, the COLMAP driver, scale calibration, the flow
+  and fine-tune stages and the video export, with the JAX CLI's flags and
+  output tree.
 """

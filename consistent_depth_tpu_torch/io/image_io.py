@@ -1,5 +1,6 @@
-"""The ``.raw`` float32 image codec: the port's copy of the readers and
-writers of ``consistent_depth_tpu/io/image_io.py`` that the port calls.
+"""Image IO: the port's copy of the readers and writers of
+``consistent_depth_tpu/io/image_io.py`` that the port calls, the ``.raw``
+float32 codec and the image loader with its resize to a target size.
 
 The ``.raw`` format is the binary interchange format between the
 pipeline's stages (depth maps, optical flow, downscaled colour), kept
@@ -11,11 +12,13 @@ bit-compatible with the reference's C++-compatible codec:
     uint64  pixel_size   (``4*d`` bytes)
     float32 payload, row-major (H, W, D)
 
-Plain numpy; the JAX package's optional native library is not used.
+Plain numpy (OpenCV and Pillow for the image files, imported where they
+are used); the JAX package's optional native library is not used.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
@@ -55,3 +58,73 @@ def save_raw_float32_image(file_name: str, image: np.ndarray) -> None:
     with open(file_name, "wb") as f:
         f.write(_HEADER.pack(h, w, cv_type, 4 * d))
         f.write(image.tobytes())
+
+
+def resize_to_target(image, max_size, align=1, suppress_messages=True):
+    """Resize so the long side is at most ``max_size``; round each dim to a
+    multiple of ``align`` (reference: utils/image_io.py:26-49, INTER_AREA)."""
+    import cv2
+
+    H, W = image.shape[:2]
+    scale = min(1.0, max_size / float(max(H, W)))
+    rh, rw = int(H * scale), int(W * scale)
+    if rw % align != 0:
+        rw = align * round(rw / align)
+    if rh % align != 0:
+        rh = align * round(rh / align)
+    if not suppress_messages:
+        print(f"Resizing {W}x{H} -> {rw}x{rh} (align={align})")
+    return cv2.resize(image, (rw, rh), interpolation=cv2.INTER_AREA)
+
+
+def load_image(file_name, max_size=None, align=1, suppress_messages=True):
+    """Load an image as float32 in [0, 1], correcting EXIF rotation
+    (reference: utils/image_io.py:54-95)."""
+    img, _ = load_image_angle(
+        file_name, max_size=max_size, align=align,
+        suppress_messages=suppress_messages,
+    )
+    return img
+
+
+def load_image_angle(
+    file_name, max_size=None, min_size=None, angle=0, align=1,
+    suppress_messages=True,
+):
+    import cv2
+    from PIL import Image
+
+    with Image.open(file_name) as img:
+        exif = getattr(img, "_getexif", lambda: None)()
+        if exif is not None:
+            orient = dict(exif.items()).get(274)
+            if orient == 8:
+                angle = 90
+            elif orient == 6:
+                angle = 270
+            elif orient == 3:
+                angle = 180
+        if angle != 0:
+            img = img.rotate(angle, expand=True)
+        out = np.float32(img) / 255.0
+
+    if max_size is not None:
+        if min_size is not None:
+            out = cv2.resize(out, (max_size, min_size),
+                             interpolation=cv2.INTER_AREA)
+        else:
+            out = resize_to_target(
+                out, max_size, align=align, suppress_messages=suppress_messages
+            )
+    return out, angle
+
+
+def save_image(file_name: str, image: np.ndarray) -> None:
+    ext = os.path.splitext(file_name)[1].lower()
+    if ext == ".raw":
+        save_raw_float32_image(file_name, image)
+    else:
+        from PIL import Image
+
+        arr = np.clip(255.0 * np.asarray(image), 0, 255).astype("uint8")
+        Image.fromarray(arr).save(file_name)

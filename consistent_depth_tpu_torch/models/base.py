@@ -13,7 +13,9 @@ and computes in bf16, as the JAX package's bf16 mode does
 (``layers.py::set_compute_dtype``).
 
 Weights come from a ``.pth`` checkpoint in the torch state_dict layout or,
-for ``checkpoint=""``, from a seeded initialisation. Nothing is ever
+for ``checkpoint=""``, from a seeded initialisation. The default checkpoint
+of an adapter lies under ``$CDTPU_CHECKPOINT_DIR`` when that is set, else
+under ``./checkpoints``, as the flow backend's does. Nothing is ever
 downloaded: a checkpoint path that does not exist raises.
 """
 
@@ -29,8 +31,12 @@ from .layers import init_parameters
 
 
 class DepthModel:
-    # per-backbone requirement: H and W must be multiples of ``align``
+    # per-backbone requirement (H and W must be multiples of ``align``) and
+    # defaults, which the CLI reads for its <=0 / <0 sentinel flags
     align: int = 1
+    learning_rate: float = 1e-4
+    lambda_view_baseline: float = 1.0
+    # relative to the stock ``checkpoints/`` cache directory
     default_checkpoint: Optional[str] = None
 
     def __init__(self, checkpoint: Optional[str] = None, seed: int = 0,
@@ -40,7 +46,7 @@ class DepthModel:
         built on the host and moved to ``device``, the card unless the
         caller asks for the CPU."""
         if checkpoint is None:
-            checkpoint = self.default_checkpoint
+            checkpoint = self.default_checkpoint_path()
         # built on the meta device so that construction draws nothing from
         # the global RNG; every value is then set explicitly below
         with torch.device("meta"):
@@ -61,6 +67,18 @@ class DepthModel:
         self.dtype = torch.float32
         self.compute_dtype = torch.float32
         self.to(device, dtype)
+
+    @classmethod
+    def default_checkpoint_path(cls) -> Optional[str]:
+        """``default_checkpoint``, relocated under ``$CDTPU_CHECKPOINT_DIR``
+        when that is set (the JAX package's rule, models/base.py:56-68)."""
+        if cls.default_checkpoint is None:
+            return None
+        ckpt_dir = os.environ.get("CDTPU_CHECKPOINT_DIR")
+        if ckpt_dir:
+            return os.path.join(ckpt_dir,
+                                os.path.basename(cls.default_checkpoint))
+        return cls.default_checkpoint
 
     def to(self, device, dtype: torch.dtype) -> "DepthModel":
         """Move the network to ``device`` and cast its parameters and

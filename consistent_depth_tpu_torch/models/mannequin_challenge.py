@@ -12,6 +12,8 @@ from .hourglass import HourglassModel
 
 class MannequinChallengeModel(DepthModel):
     align = 16
+    learning_rate = 0.0004
+    lambda_view_baseline = 0.1
     default_checkpoint = "checkpoints/mc.pth"
 
     def _make_module(self):

@@ -16,7 +16,11 @@ matmul on the card may take.
 
 from __future__ import annotations
 
+from typing import Sequence, Union
+
 import torch
+
+from .resample import sample_uv
 
 
 def pixel_grid(shape, dtype: torch.dtype = torch.float32,
@@ -97,3 +101,39 @@ def depth_to_points(depths: torch.Tensor,
     H, W = depths.shape[-2:]
     pixels = pixel_grid((H, W), dtype=depths.dtype, device=depths.device)
     return pixels_to_points(intrinsics, depths, pixels)
+
+
+def _index_on(tgt_ids, device: torch.device) -> torch.Tensor:
+    """``tgt_ids`` as one index tensor on ``device``: a Python list indexes
+    a card tensor through a host-to-card copy of its own at every use."""
+    return torch.as_tensor(tgt_ids, dtype=torch.long, device=device)
+
+
+def warping_field(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
+                  depths: torch.Tensor,
+                  tgt_ids: Union[Sequence[int], torch.Tensor]
+                  ) -> torch.Tensor:
+    """Sampling field: uv[i] samples frame tgt_ids[i] to produce frame i
+    (reference: utils/geometry.py:177-198).
+
+    Args:
+        extrinsics (N, 3, 4), intrinsics (N, 4), depths (N, H, W)
+    """
+    idx = _index_on(tgt_ids, depths.device)
+    points_cam = depth_to_points(depths, intrinsics)
+    points_tgt = reproject_points(points_cam, extrinsics, extrinsics[idx])
+    return project(points_tgt, intrinsics[idx])
+
+
+def warp_image(images: torch.Tensor, depths: torch.Tensor,
+               extrinsics: torch.Tensor, intrinsics: torch.Tensor,
+               tgt_ids: Union[Sequence[int], torch.Tensor]) -> torch.Tensor:
+    """Warp images[tgt_ids[i]] into frame i's view using depths[i]
+    (reference: utils/geometry.py:211-227).
+
+    Args:
+        images (N, H, W, C), depths (N, H, W)
+    """
+    idx = _index_on(tgt_ids, depths.device)
+    uv_tgt = warping_field(extrinsics, intrinsics, depths, idx)
+    return sample_uv(images[idx], uv_tgt)

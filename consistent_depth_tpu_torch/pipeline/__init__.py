@@ -1,1 +1,2 @@
-"""Pipeline stages of the port (the flow stage in this slice)."""
+"""Pipeline stages of the port: the stage graph, video, COLMAP, scale
+calibration, flow and the video export."""

@@ -18,7 +18,8 @@ from __future__ import annotations
 from collections import namedtuple
 from enum import Enum, auto, unique
 from math import ceil, floor, log2
-from typing import Any, Dict, Iterable, NamedTuple, Optional, Sequence, Set
+from typing import (Any, Dict, Iterable, List, NamedTuple, Optional, Sequence,
+                    Set)
 
 from .frame_range import FrameRange
 
@@ -32,6 +33,14 @@ class SamplePairsMode(Enum):
     CONSECUTIVE = auto()
     HIERARCHICAL = auto()
     HIERARCHICAL2 = auto()
+
+    @classmethod
+    def name_mode_map(cls) -> Dict[str, "SamplePairsMode"]:
+        return {v.name.lower(): v for v in cls}
+
+    @classmethod
+    def names(cls) -> List[str]:
+        return [v.name.lower() for v in cls]
 
 
 class SamplePairsOptions(NamedTuple):

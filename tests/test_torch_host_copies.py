@@ -2,7 +2,10 @@
 originals: pair sampling over a frame range, the pair-batch iterator, the
 ``.raw`` float32 codec, the flow resize and homography composition, the
 colour wheel and host flow renderer, the depth visualisation and its magma
-table, the TensorBoard event writer, and the dataset loaders.
+table, the TensorBoard event writer, the dataset loaders, and the CLI's
+helpers: the stage banners, the frame-range parser, the sampling mode
+names, the image resize and writer, and the small artifact formats of
+``io/metadata_io.py``.
 
 Both sides are plain numpy (and OpenCV for the image helpers) computing
 the same arithmetic in the same order, so every comparison is exact."""
@@ -19,19 +22,21 @@ from consistent_depth_tpu.data.video_dataset import (
     PairBatchIterator as JaxPairBatchIterator)
 from consistent_depth_tpu.flow import backends as jax_backends
 from consistent_depth_tpu.io import image_io as jax_image_io
+from consistent_depth_tpu.io import metadata_io as jax_metadata_io
 from consistent_depth_tpu.ops import flow_viz as jax_flow_viz
 from consistent_depth_tpu.training import summaries as jax_summaries
 from consistent_depth_tpu.utils import frame_range as jax_frame_range
 from consistent_depth_tpu.utils import frame_sampling as jax_sampling
+from consistent_depth_tpu.utils import helpers as jax_helpers
 from consistent_depth_tpu.utils import visualization as jax_visualization
 from consistent_depth_tpu_torch.data import video_dataset
 from consistent_depth_tpu_torch.data.video_dataset import PairBatchIterator
 from consistent_depth_tpu_torch.flow import backends
-from consistent_depth_tpu_torch.io import image_io
+from consistent_depth_tpu_torch.io import image_io, metadata_io
 from consistent_depth_tpu_torch.ops import flow_viz
 from consistent_depth_tpu_torch.training import summaries
 from consistent_depth_tpu_torch.utils import (
-    frame_range, frame_sampling, visualization)
+    frame_range, frame_sampling, helpers, visualization)
 
 
 def _pairs(fr, fs, mode, num_frames, two_way, subset):
@@ -236,3 +241,93 @@ def test_video_frame_dataset_matches_jax(tiny_dataset):
                                          "frame_000002.png"))
     np.testing.assert_array_equal(png, jax_video_dataset.load_color(
         pjoin(tiny_dataset, "color_down_png", "frame_000002.png")))
+
+
+def test_banners_match_jax(tmp_path, capsys):
+    for module in (helpers, jax_helpers):
+        module.print_title("Processing dataset 'x'")
+        module.print_banner("Compute flow")
+        module.mkdir_ifnotexists(str(tmp_path / "a" / "b"))
+        module.mkdir_ifnotexists(str(tmp_path / "a" / "b"))
+    out = capsys.readouterr().out
+    half = len(out) // 2
+    assert out[:half] == out[half:] and "****  Compute flow  ****" in out
+    assert os.path.isdir(tmp_path / "a" / "b")
+
+
+@pytest.mark.parametrize("text", ["", "0", "0,5-7", "3,1,2,9-12,11",
+                                  "0-0,4", "5-3", "-1"])
+def test_parse_frame_range_matches_jax(text):
+    def parse(module):
+        try:
+            r = module.parse_frame_range(text)
+        except ValueError as e:
+            return "ValueError", str(e)
+        return r.name, r.set.set
+
+    assert parse(frame_range) == parse(jax_frame_range)
+
+
+def test_sample_pairs_mode_names_match_jax():
+    assert frame_sampling.SamplePairsMode.names() == \
+        jax_sampling.SamplePairsMode.names()
+    assert {k: v.value for k, v in
+            frame_sampling.SamplePairsMode.name_mode_map().items()} == {
+        k: v.value for k, v in
+        jax_sampling.SamplePairsMode.name_mode_map().items()}
+
+
+@pytest.mark.parametrize("hw,max_size,align", [
+    ((37, 53), 24, 16), ((61, 29), 40, 3), ((448, 768), 384, 16),
+    ((448, 768), 1024, 64), ((20, 24), 100, 1)])
+def test_resize_to_target_matches_jax(hw, max_size, align):
+    img = np.random.default_rng(hw[1]).random((*hw, 3), dtype=np.float32)
+    np.testing.assert_array_equal(
+        image_io.resize_to_target(img, max_size, align=align),
+        jax_image_io.resize_to_target(img, max_size, align=align))
+
+
+@pytest.mark.parametrize("ext", [".png", ".raw"])
+def test_save_image_bytes_match_jax(tmp_path, ext):
+    img = np.random.default_rng(7).random((9, 11, 3), dtype=np.float32)
+    image_io.save_image(str(tmp_path / ("port" + ext)), img)
+    jax_image_io.save_image(str(tmp_path / ("jax" + ext)), img)
+    assert (_read_bytes(tmp_path / ("port" + ext))
+            == _read_bytes(tmp_path / ("jax" + ext)))
+
+
+def test_metadata_formats_match_jax(tmp_path):
+    """Each artifact written by either package reads back the same from
+    both, and both writers write the same bytes."""
+    rng = np.random.default_rng(8)
+    intr = rng.random((4, 4)).astype(np.float32)
+    extr = rng.random((4, 3, 4)).astype(np.float32)
+    scales = np.stack([np.arange(4.0), rng.random(4)], axis=1)
+    pairs = [(0, 1), (1, 0), (2, 3)]
+    for side, module in (("port", metadata_io), ("jax", jax_metadata_io)):
+        d = tmp_path / side
+        d.mkdir()
+        module.write_frames_txt(str(d / "frames.txt"), module.FramesTxt(
+            3, 768, 448, ["0.000000", "0.033367", "0.066733"]))
+        module.write_metadata(str(d / "metadata.npz"), intr, extr,
+                              scales=scales)
+        module.write_flow_list(str(d / "flow_list.json"), pairs)
+        module.write_scales_csv(str(d / "scales.csv"), scales)
+    for name in ("frames.txt", "flow_list.json", "scales.csv"):
+        assert (_read_bytes(tmp_path / "port" / name)
+                == _read_bytes(tmp_path / "jax" / name)), name
+    for side in ("port", "jax"):
+        d = tmp_path / side
+        assert vars(metadata_io.read_frames_txt(str(d / "frames.txt"))) == \
+            vars(jax_metadata_io.read_frames_txt(str(d / "frames.txt")))
+        meta = metadata_io.read_metadata(str(d / "metadata.npz"))
+        for k, v in jax_metadata_io.read_metadata(
+                str(d / "metadata.npz")).items():
+            np.testing.assert_array_equal(meta[k], v)
+        assert metadata_io.read_flow_list(str(d / "flow_list.json")) == \
+            jax_metadata_io.read_flow_list(str(d / "flow_list.json")) == \
+            pairs
+        np.testing.assert_array_equal(
+            metadata_io.read_scales_csv(str(d / "scales.csv")), scales)
+        assert metadata_io.scales_to_map(scales) == \
+            jax_metadata_io.scales_to_map(scales)

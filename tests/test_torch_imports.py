@@ -60,7 +60,11 @@ def test_port_imports_without_jax():
               "training.optimizer", "training.fine_tuning",
               "training.checkpoints", "training.summaries",
               "io.image_io", "utils.frame_range", "utils.frame_sampling",
-              "utils.visualization", "data.video_dataset"):
+              "utils.visualization", "data.video_dataset",
+              "utils.helpers", "io.metadata_io", "io.colmap_io",
+              "pipeline.video", "pipeline.colmap_processor",
+              "pipeline.scale_calibration", "pipeline.make_video",
+              "pipeline.process", "cli.params", "cli.main", "__main__"):
         assert "consistent_depth_tpu_torch." + m in mods
     assert JAX_FREE_HELPERS == []
     proc = _forbidden_after(
