@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100 (sm_90a).
 
-Drives the port's four paths with random weights from a seed, each at
-its model's full width, and checks every hand-written kernel on them
-against its plain PyTorch version:
+Drives the port's paths with random weights from a seed, each at its
+model's full width, and checks every hand-written kernel on them against
+its plain PyTorch version:
 
 - eval-mode MannequinChallenge depth serving through
   ``consistent_depth_tpu_torch.serving.DepthServer`` on 224x384 frames
@@ -28,7 +28,10 @@ against its plain PyTorch version:
   consistent_depth_tpu_torch`` (``cli.main.main``): downscaling, initial
   depth, scale calibration, FlowNet2 on the missing pairs, masks, pair
   filter, visualisations, fine-tuning and final depth, on a scratch
-  dataset of 24 frames of a synthetic plane scene (every kernel above).
+  dataset of 24 frames of a synthetic plane scene (every kernel above);
+- the midas2 and monodepth2 backbones at full width and depth: their conv
+  classes, the train step, the engine's passes, serving and the CLI (the
+  k x k conv kernel on their stride-1 3x3 convs, forward and grad-input).
 
 Phases, each printing one JSON line:
 
@@ -129,14 +132,43 @@ Phases, each printing one JSON line:
    directory: exit 0, every stage before fine-tuning finding its outputs
    (no file outside the tag directory touched), no train step; and the
    same command under ``CUDA_VISIBLE_DEVICES=""`` exiting non-zero with
-   the port's no-card message before it writes. The directory is deleted,
-   the CLI's console kept in ``build/chip_smoke_cli.log``.
+   the port's no-card message before it writes. The CLI's console is kept
+   in ``build/chip_smoke_cli.log`` and the directory kept for phases 12-13;
+12-13. backbone, for midas2 (MiDaS v2: ResNeXt-101 32x8d 3-4-23-3 with the
+   256-wide decoder) and monodepth2 (ResNet-18 at the released 320x1024
+   feed), each at full width and depth from seed 0 (midas2's output conv
+   tamed: weight x 0.05, bias + 5), written as its default checkpoint
+   (``midas2.pth``; the ``monodepth2_mono+stereo_1024x320/`` directory with
+   ``encoder.pth`` and ``depth.pth``) in phase 11's
+   ``CDTPU_CHECKPOINT_DIR``, from which every model below is built: every
+   conv class that ``same_conv`` and ``same_conv_grad_input`` see in one
+   batch-8 forward and one train step at 224x384, against plain in f32 and
+   bf16 with the bands of phases 3 and 7, timed against cuDNN; 20 and 20
+   (midas2) or 13 and 13 (monodepth2) launches per forward and per step, by
+   the plan's routes; on phase 8's resident data the f32 step with the
+   kernels against plain, the card against the CPU at 64x96 (in f64 within
+   phase 8's bands; in f32 within the card's own gap with the plain
+   version in the kernels' place plus phase 8's bands; every conv class of
+   that step against plain with the bands of phases 3 and 7) and, for
+   midas2, the NaN-skip with the untamed output conv, bitwise; 3 warm-up
+   and 20 timed ``train_step``s in f32 (profiled) and bf16; 8 paired eval
+   batches and an ``infer`` under the sync debug mode "error"; serving
+   through ``DepthServer(ServeConfig(model_type=...))`` in bf16 at batch 8
+   (32 frames at 224x384 and three 230x380 frames): frames/s, launches,
+   bf16 against f32; then the CLI, ``--model_type`` with one epoch on phase
+   11's directory (its flows and frames reused): the tag, the range and
+   initial-depth directories, finite depths and losses, the launches by
+   route, frame 0's initial depth against the CPU. midas2's outputs are
+   compared less its output bias, the network's own part of its disparity.
+   The directory is deleted after phase 13.
 
 Then the card's name and power limit as nvidia-smi prints them, a
-``{"kernels": [...]}`` line, whose launches add up each path's run (one
-phase-9 epoch per precision and phase 11 for the conv, phase 6 and phase
-11 for the correlation; ``launches_by_path`` splits them), and last
-``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` line, whose launches add up each path's run
+(``launches_by_path`` splits them): for the conv's mc entries one phase-9
+epoch per precision and phase 11, with the times of mc's classes; for each
+backbone's entries (``same_conv_midas2``, ...) its timed steps and CLI run,
+with the times of its own classes; phase 6 and phase 11 for the
+correlation. Last comes ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 
 Usage, from the root of a checkout: ``python3 chip_smoke.py``
@@ -290,6 +322,36 @@ CLI_EPOCHS = 2
 CLI_ARGS = ["--num_epochs", str(CLI_EPOCHS), "--resume"]
 CLI_TAG = "B0.1_R1.0_PL1-0_LR0.0004_BS4_Oadam"
 TOL_CLI_SCALES = 1e-6
+# backbone paths (phases 12-13): midas2 (ResNeXt-101 32x8d 3-4-23-3 with
+# the 256-wide decoder) and monodepth2 (ResNet-18 at the released 320x1024
+# feed), each at full width and depth from seed 0, written as the default
+# checkpoint under phase 11's CDTPU_CHECKPOINT_DIR. A seeded MiDaS emits
+# ReLU'd ~zero disparity and depth = 1/disparity NaNs the loss, so its
+# output bias is raised by 5 (tests/test_engine_backbones.py) and, as its
+# decoder has no BN and one Adam step at lr 1e-4 then drives some pixel's
+# disparity to 0 again, its output weight scaled by TAME_HEAD; the
+# NaN-skip runs with the untamed output conv. Routed convs per forward and
+# grad-inputs per step, as the plan routes them: midas2's 4 transition
+# convs, 14 residual-unit convs and 2 output convs; monodepth2's 13
+# stride-1 3x3 convs of ResNet-18 (its reflect-padded decoder stays on
+# cuDNN)
+BACKBONES = ("midas2", "monodepth2")
+MIDAS_TAME = 5.0
+# the card against the CPU at 64x96 (phase 8's bands, TOL_CPU_*): in f64,
+# where rounding hides nothing; in f32, the card with the kernels against
+# the card with the plain version in their place, each against the CPU.
+# midas2's f32 gradients are rounding-limited at this size: on an H100 the
+# card's f32 reads 1.2e-3 from f64 with the kernels and with cuDNN in
+# their place alike, 2.8e-4 with cuDNN disabled, as the CPU's own f32
+# (2.7e-4); cuDNN's f32 1x1 convs carry it (tools/
+# torch_backbone_precision.py, PERF.md section 6)
+BACKBONE_CONVS = {"midas2": (20, 20), "monodepth2": (13, 13)}
+MONODEPTH2_DIR = "monodepth2_mono+stereo_1024x320"
+MONODEPTH2_FEED = (320, 1024)
+# the CLI on phase 11's directory, one epoch, at each backbone's defaults
+BACKBONE_CLI_EPOCHS = 1
+BACKBONE_TAGS = {"midas2": "B0.0001_R1.0_PL1-0_LR0.0001_BS4_Oadam",
+                 "monodepth2": "B1_R1.0_PL1-0_LR4e-05_BS4_Oadam"}
 
 
 def require(cond, what: str) -> None:
@@ -323,23 +385,49 @@ def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
+@contextmanager
+def recording_convs(s2d_conv, fwd, gx):
+    """Inside the block every same_conv and same_conv_grad_input call adds
+    its (x or ct shape, w shape[, has bias]) to the Counters ``fwd`` and
+    ``gx``."""
+    orig = (s2d_conv.same_conv, s2d_conv.same_conv_grad_input)
+
+    def conv(x, w, bias=None):
+        fwd[(tuple(x.shape), tuple(w.shape), bias is not None)] += 1
+        return orig[0](x, w, bias)
+
+    def grad_input(ct, w):
+        gx[(tuple(ct.shape), tuple(w.shape))] += 1
+        return orig[1](ct, w)
+
+    s2d_conv.same_conv, s2d_conv.same_conv_grad_input = conv, grad_input
+    try:
+        yield
+    finally:
+        s2d_conv.same_conv, s2d_conv.same_conv_grad_input = orig
+
+
+@contextmanager
+def plain_convs(s2d_conv):
+    """Inside the block the routed convs take their plain versions
+    (``same_conv_reference`` and its grad-input) in place of the
+    kernels."""
+    orig = (s2d_conv.same_conv, s2d_conv.same_conv_grad_input)
+    s2d_conv.same_conv = s2d_conv.same_conv_reference
+    s2d_conv.same_conv_grad_input = s2d_conv.same_conv_grad_input_reference
+    try:
+        yield
+    finally:
+        s2d_conv.same_conv, s2d_conv.same_conv_grad_input = orig
+
+
 def record_conv_classes(torch, s2d_conv, model, batch=BATCH, size=SIZE):
     """The (x shape, w shape, has bias) of every same_conv call of one
     forward of ``batch`` frames at ``size`` (batch 8 at 224x384 by
     default), with its count."""
     seen = Counter()
-    orig = s2d_conv.same_conv
-
-    def recording(x, w, bias=None):
-        seen[(tuple(x.shape), tuple(w.shape), bias is not None)] += 1
-        return orig(x, w, bias)
-
-    s2d_conv.same_conv = recording
-    try:
-        with torch.inference_mode():
-            model.apply(torch.rand((batch, 1, *size, 3), device="cuda"))
-    finally:
-        s2d_conv.same_conv = orig
+    with recording_convs(s2d_conv, seen, Counter()), torch.inference_mode():
+        model.apply(torch.rand((batch, 1, *size, 3), device=model.device))
     return seen
 
 
@@ -732,7 +820,11 @@ def rel_l2(a, b) -> float:
 
 
 def grads_of(engine):
-    return {k: p.grad.detach().double().cpu()
+    """The parameters' gradients in f64 on the host; a parameter outside the
+    loss has none after a bare ``backward`` and counts as zero, as the
+    engine's step makes it."""
+    return {k: (p.grad if p.grad is not None
+                else p.new_zeros(p.shape)).detach().double().cpu()
             for k, p in engine.params.items()}
 
 
@@ -975,14 +1067,9 @@ def train_path(torch, smi, classes, training, s2d_conv,
     grads32 = grads_of(eng32)
     loss32 = float(first32["loss"])
     plain = make_engine("f32")
-    orig_conv = (s2d_conv.same_conv, s2d_conv.same_conv_grad_input)
-    s2d_conv.same_conv = s2d_conv.same_conv_reference
-    s2d_conv.same_conv_grad_input = s2d_conv.same_conv_grad_input_reference
-    try:
+    with plain_convs(s2d_conv):
         plain_out = plain.train_step(data, idx0, valid0)
         plain_loss = float(plain_out["loss"])
-    finally:
-        s2d_conv.same_conv, s2d_conv.same_conv_grad_input = orig_conv
     plain_loss_err = abs(loss32 - plain_loss) / abs(plain_loss)
     plain_grad_err = rel_l2(grads32, grads_of(plain))
     del plain
@@ -1193,14 +1280,9 @@ def eval_kernel_vs_plain(torch, s2d_conv, engine, data, idx, valid):
     out = {}
     for name in ("kernel", "plain"):
         engine.model.net.load_state_dict(state)
-        orig = s2d_conv.same_conv
-        if name == "plain":
-            s2d_conv.same_conv = s2d_conv.same_conv_reference
-        try:
+        with plain_convs(s2d_conv) if name == "plain" else nullcontext():
             m = engine.eval_epoch(data, idx[:n], valid[:n])
             out[name] = {k: v.double().cpu() for k, v in m.items()}
-        finally:
-            s2d_conv.same_conv = orig
     engine.model.net.load_state_dict(state)
     k, p = out["kernel"], out["plain"]
     # padding pairs have zero losses on both sides
@@ -1647,7 +1729,7 @@ def cli_modules(training):
     from consistent_depth_tpu_torch.io import image_io, metadata_io
     from consistent_depth_tpu_torch.models import torch_import
     from consistent_depth_tpu_torch.models.registry import (
-        create_depth_model)
+        create_depth_model, get_depth_model)
     from consistent_depth_tpu_torch.ops import geometry
     from consistent_depth_tpu_torch.pipeline import process
 
@@ -1658,23 +1740,30 @@ def cli_modules(training):
             "frame_sampling": training.frame_sampling,
             "TorchFlowBackend": TorchFlowBackend,
             "VideoFrameDataset": VideoFrameDataset,
-            "create_depth_model": create_depth_model}
+            "create_depth_model": create_depth_model,
+            "get_depth_model": get_depth_model}
+
+
+CLI_DIR = os.path.join(REPO, "build", "chip_smoke_cli")
 
 
 def cli_path(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
-             device="cuda"):
+             device="cuda", keep=False):
     """Phase 11: the whole pipeline through the port's CLI on a scratch
-    dataset directory, run in-process and then again as ``python -m``; the
-    artifacts, the scales and the launches checked, the directory deleted
-    and the CLI's console kept in ``build/chip_smoke_cli.log``."""
-    work_dir = os.path.join(REPO, "build", "chip_smoke_cli")
+    dataset directory (CLI_DIR), run in-process and then again as ``python
+    -m``; the artifacts, the scales and the launches checked, the CLI's
+    console kept in ``build/chip_smoke_cli.log``. The directory is deleted
+    unless ``keep`` (the backbone phases run their CLI on it; the caller
+    deletes it then)."""
+    work_dir = CLI_DIR
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
     try:
         return _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward,
                            init_sd, device, work_dir)
     finally:
-        shutil.rmtree(work_dir, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(work_dir, ignore_errors=True)
 
 
 def _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
@@ -1704,8 +1793,6 @@ def _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
         corr_calls.append((tuple(f1.shape), max_displacement, stride))
         return orig_corr(f1, f2, max_displacement, stride)
 
-    saved_env = os.environ.get("CDTPU_CHECKPOINT_DIR")
-    os.environ["CDTPU_CHECKPOINT_DIR"] = ckpt_dir
     process.Stage.execute = timed_execute
     corr.correlation = recording
     s2d_conv.reset_counts()
@@ -1714,16 +1801,12 @@ def _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
     out = io.StringIO()
     t0 = time.perf_counter()
     try:
-        with redirect_stdout(out):
+        with env_var("CDTPU_CHECKPOINT_DIR", ckpt_dir), redirect_stdout(out):
             initial_dir, tag_dir, frames = mods["cli_main"].main(
                 ["--path", work_dir, *CLI_ARGS], device=device)
     finally:
         process.Stage.execute = orig_execute
         corr.correlation = orig_corr
-        if saved_env is None:
-            os.environ.pop("CDTPU_CHECKPOINT_DIR")
-        else:
-            os.environ["CDTPU_CHECKPOINT_DIR"] = saved_env
         with open(log_path, "w") as log:
             log.write(out.getvalue())
     wall = time.perf_counter() - t0
@@ -1933,6 +2016,535 @@ def _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
     require(all(rerun_ok.values()), f"CLI re-run {rerun_ok}")
     require(refused_ok, "the CLI without a card did not refuse cleanly")
     return result
+
+
+def seed_backbone(torch, name, create_depth_model, torch_import, ckpt_dir):
+    """The backbone's seed-0 weights (midas2's output conv tamed: its weight
+    scaled by TAME_HEAD and its bias raised by MIDAS_TAME), written under
+    ``ckpt_dir`` where the adapter looks for its default checkpoint:
+    ``midas2.pth``, or monodepth2's released layout, a directory of
+    ``encoder.pth`` (with the feed size) and ``depth.pth``. Returns the
+    untamed output conv's weight and bias (midas2) or None."""
+    model = create_depth_model(name, checkpoint="", seed=0, device="cpu")
+    if name == "midas2":
+        head = model.net.scratch.output_conv[4]
+        untamed = (head.weight.detach().clone(), head.bias.detach().clone())
+        with torch.no_grad():
+            head.weight.mul_(TAME_HEAD)
+            head.bias.add_(MIDAS_TAME)
+        torch_import.save_checkpoint(os.path.join(ckpt_dir, "midas2.pth"),
+                                     model.net.state_dict())
+        return untamed
+    sd = dict(model.net.state_dict())
+    d = os.path.join(ckpt_dir, MONODEPTH2_DIR)
+    os.makedirs(d, exist_ok=True)
+    height, width = MONODEPTH2_FEED
+    torch.save({**{k: v for k, v in sd.items() if k.startswith("encoder.")},
+                "height": height, "width": width, "use_stereo": False},
+               os.path.join(d, "encoder.pth"))
+    torch.save({k: v for k, v in sd.items() if k.startswith("decoder.")},
+               os.path.join(d, "depth.pth"))
+    return None
+
+
+def network_part(name, bias, depth):
+    """What the network itself computes of a depth map (numpy): for midas2
+    the disparity 1/depth less ``bias``, its output conv's bias, which
+    MIDAS_TAME makes most of a seeded MiDaS's disparity, so that a check
+    sees the network and not the constant; for monodepth2 the depth."""
+    if name == "midas2":
+        return 1.0 / depth.astype(np.float64) - bias
+    return depth
+
+
+def output_bias(name, model):
+    """midas2's output conv bias (a float), else None."""
+    if name == "midas2":
+        return float(model.net.scratch.output_conv[4].bias.detach().float())
+    return None
+
+
+@contextmanager
+def env_var(key, value):
+    saved = os.environ.get(key)
+    os.environ[key] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(key)
+        else:
+            os.environ[key] = saved
+
+
+def route_counts_of(s2d_conv, classes, dtype, grad_input, per=1):
+    """{forward_<route> or grad_input_<route>: launches} for ``classes``
+    run ``per`` times, by the plan."""
+    prefix = "grad_input_" if grad_input else "forward_"
+    got = expected_routes(s2d_conv, classes, dtype, grad_input)
+    return {prefix + r: got[r] * per for r in s2d_conv.ROUTES}
+
+
+def backbone_path(torch, smi, name, training, s2d_conv, mods, LossWeights,
+                  DepthServer, ServeConfig, data, cli_dir, device="cuda"):
+    """Phases 12-13 for one backbone at full width and depth: its conv
+    classes against plain, the train path (timed steps, kernels vs plain,
+    card vs CPU, the NaN-skip), the engine's eval and infer passes, serving
+    and the CLI, every model built by the adapter from its default
+    checkpoint under phase 11's checkpoint directory. Returns the phase's
+    record, the launches by route of its main-path runs (timed steps by
+    precision, ``f32_cli``) and its conv classes' rows (``check_conv``
+    with their ``count`` per batch-8 forward or per step)."""
+    create = mods["create_depth_model"]
+    ckpt_dir = os.path.join(cli_dir, "checkpoints")
+    t0 = time.perf_counter()
+    untamed = seed_backbone(torch, name, create, mods["torch_import"],
+                            ckpt_dir)
+    with env_var("CDTPU_CHECKPOINT_DIR", ckpt_dir):
+        return _backbone_checks(torch, smi, name, training, s2d_conv, mods,
+                                LossWeights, DepthServer, ServeConfig, data,
+                                cli_dir, device, time.perf_counter() - t0,
+                                untamed)
+
+
+def _backbone_checks(torch, smi, name, training, s2d_conv, mods, LossWeights,
+                     DepthServer, ServeConfig, data, cli_dir, device,
+                     seed_s, untamed):
+    create = mods["create_depth_model"]
+    cls = mods["get_depth_model"](name)
+    n_fwd, n_gx = BACKBONE_CONVS[name]
+    record = {"phase": "backbone", "backbone": name, "weights_s": seed_s,
+              "nvidia_smi": smi}
+
+    def make_engine(precision, dev=device):
+        model = create(name, device=dev)
+        return training.TrainingEngine(
+            model, training.create_optimizer("Adam", cls.learning_rate),
+            LossWeights(lambda_view_baseline=cls.lambda_view_baseline,
+                        lambda_reprojection=1.0), precision=precision)
+
+    # -- the conv classes of a batch-8 forward and of one train step -------
+    t0 = time.perf_counter()
+    probe = create(name, device=device)
+    record["build_s"] = time.perf_counter() - t0
+    record["parameters"] = sum(p.numel() for p in probe.net.parameters())
+    fwd_classes = record_conv_classes(torch, s2d_conv, probe)
+    del probe
+    n_pairs = len(data["pair_ids"])
+    batches = list(islice(training.PairBatchIterator(
+        n_pairs, TRAIN_BATCH, seed=0).epoch(0),
+        1 + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS))
+    idx0, valid0 = batches[0]
+    eng32 = make_engine("f32")
+    bias0 = output_bias(name, eng32.model)
+    step_fwd, gx_classes = Counter(), Counter()
+    s2d_conv.reset_counts()
+    with recording_convs(s2d_conv, step_fwd, gx_classes):
+        first32, depth32 = eng32._step(data, *eng32._indices(idx0, valid0))
+        torch.cuda.synchronize()
+    first_launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    first_routes = dict(s2d_conv.route_counts)
+    grads32 = grads_of(eng32)
+    loss32 = float(first32["loss"])
+    routes = {}
+    for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        routes[dt_name] = {
+            **route_counts_of(s2d_conv, fwd_classes, dt, False),
+            **route_counts_of(s2d_conv, gx_classes, dt, True)}
+    rows = []
+    classes = [("forward", k[0], k[1], k[2], c)
+               for k, c in sorted(fwd_classes.items())]
+    classes += [("grad_input", k[0], k[1], False, c)
+                for k, c in sorted(gx_classes.items())]
+    for i, (direction, ashape, wshape, has_bias, count) in enumerate(classes):
+        row = check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias,
+                         seed=2000 + i)
+        row["count"] = count
+        rows.append(row)
+        emit({"phase": "backbone_kernel", "backbone": name, **row,
+              "nvidia_smi": smi})
+    record.update({
+        "classes": len(rows), "forward_classes": len(fwd_classes),
+        "grad_input_classes": len(gx_classes),
+        "launches_per_forward": sum(fwd_classes.values()),
+        "step_forward_classes_equal": step_fwd == fwd_classes,
+        "first_step_launches": list(first_launches),
+        "expected_launches": [n_fwd, n_gx],
+        "first_step_routes": first_routes, "expected_routes": routes["f32"],
+        "per_forward_ms": conv_totals(
+            [r for r in rows if r["direction"] == "forward"], "count"),
+        "per_step_grad_input_ms": conv_totals(
+            [r for r in rows if r["direction"] == "grad_input"], "count"),
+        "kernel_slower_than_cudnn": [
+            {"direction": r["direction"], "shape": r.get("x", r.get("ct")),
+             "w": r["w"], "dtype": dt, "ms": r[dt]["ms"],
+             "library_ms": r[dt]["library_ms"]}
+            for r in rows for dt in ("f32", "bf16")
+            if r[dt]["ms"] > r[dt]["library_ms"]]})
+    require(all(r["pass"] for r in rows),
+            f"{name}: a conv class disagrees with plain")
+    require(sum(fwd_classes.values()) == n_fwd and step_fwd == fwd_classes,
+            f"{name}: {sum(fwd_classes.values())} routed convs per forward, "
+            f"expected {n_fwd}; a step's classes {dict(step_fwd)}, a "
+            f"forward's {dict(fwd_classes)}")
+    require(first_launches == (n_fwd, n_gx),
+            f"{name}: one step made {first_launches} launches, expected "
+            f"{(n_fwd, n_gx)}")
+    require(all(first_routes[k] == v for k, v in routes["f32"].items()),
+            f"{name}: one f32 step took routes {first_routes}")
+
+    # -- the f32 step with the kernels against plain -----------------------
+    # (and the step's forward: midas2's disparity less its output bias)
+    plain = make_engine("f32")
+    with plain_convs(s2d_conv):
+        plain_out, plain_depth = plain._step(
+            data, *plain._indices(idx0, valid0))
+    plain_loss = float(plain_out["loss"])
+    plain_loss_err = abs(loss32 - plain_loss) / abs(plain_loss)
+    plain_grad_err = rel_l2(grads32, grads_of(plain))
+    part32, part_plain = (network_part(name, bias0,
+                                       d.detach().double().cpu().numpy())
+                          for d in (depth32, plain_depth))
+    plain_out_err = float(np.linalg.norm(part32 - part_plain)
+                          / np.linalg.norm(part_plain))
+    del plain, plain_out, plain_depth, depth32
+
+    # -- the card against the CPU, two pairs at 64x96 ----------------------
+    # f64 on both sides (the convs on cuDNN and the plain version, which
+    # the kernels do not take): every other op of the port, card against
+    # CPU, within phase 8's bands. f32: the card with the kernels no
+    # further from the CPU than the card with the plain version in their
+    # place (cuDNN), plus phase 8's band; cuDNN's own f32 rounding is
+    # what separates the card from the CPU here (tools/
+    # torch_backbone_precision.py). The classes of the card's f32 run,
+    # against plain with the bands of phases 3 and 7.
+    small = {k: v[:2] if k != "frames" else v for k, v in
+             make_train_workload(training, TRAIN_SMALL_SIZE).items()}
+    small_fwd, small_gx = Counter(), Counter()
+    sides = {}
+    for side, dev, dt, convs in (
+            ("card", device, torch.float32,
+             recording_convs(s2d_conv, small_fwd, small_gx)),
+            ("card_plain", device, torch.float32, plain_convs(s2d_conv)),
+            ("card_f64", device, torch.float64, plain_convs(s2d_conv)),
+            ("cpu", "cpu", torch.float32, nullcontext()),
+            ("cpu_f64", "cpu", torch.float64, nullcontext())):
+        eng = make_engine("f32", dev)
+        d = eng.put_data(small)
+        if dt == torch.float64:
+            eng.model.net.double()
+            eng.model.compute_dtype = dt
+            d = {k: v.double() if v.is_floating_point() else v
+                 for k, v in d.items()}
+        idx, valid = eng._indices([0, 1], [1.0, 1.0])
+        batch, valid = training.gather_batch(d, idx), valid.to(dt)
+        with convs:
+            loss, _, depth = eng._loss(batch, valid, train=False)
+            loss.backward()
+            # a train-mode forward: the step's loss and BN running stats
+            with torch.no_grad():
+                train_loss = eng._loss(batch, valid, train=True)[0].item()
+        eval_grads, eval_loss = grads_of(eng), loss.item()
+        stats = {k: v.double().cpu()
+                 for k, v in eng.model.net.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        out = network_part(name, output_bias(name, eng.model),
+                           depth.detach().double().cpu().numpy())
+        sides[side] = (train_loss, stats, eval_grads, eval_loss, out)
+        del eng
+
+    def gaps(a, b):
+        return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]),
+                "bn_stats_rel": max(
+                    float((a[1][k] - v).abs().max() / v.abs().max())
+                    for k, v in b[1].items()),
+                "eval_loss_rel": abs(a[3] - b[3]) / abs(b[3]),
+                "eval_grads_rel_l2": rel_l2(a[2], b[2]),
+                "output_rel_l2": float(np.linalg.norm(a[4] - b[4])
+                                       / np.linalg.norm(b[4]))}
+
+    tols = {"loss_rel": TOL_CPU_LOSS, "bn_stats_rel": TOL_CPU_STATS,
+            "eval_loss_rel": TOL_CPU_LOSS,
+            "eval_grads_rel_l2": TOL_CPU_GRADS,
+            "output_rel_l2": TOL_CPU_LOSS}
+    f64_gap = gaps(sides["card_f64"], sides["cpu_f64"])
+    card_gap = gaps(sides["card"], sides["cpu"])
+    plain_gap = gaps(sides["card_plain"], sides["cpu"])
+    f32_bands = {k: plain_gap[k] + tol for k, tol in tols.items()}
+    small_classes = [("forward", *key) for key in sorted(small_fwd)]
+    small_classes += [("grad_input", *key, False) for key in sorted(small_gx)]
+    small_rows = [check_conv(torch, s2d_conv, *c, seed=3000 + i, timed=False)
+                  for i, c in enumerate(small_classes)]
+    cpu_checks = {
+        "card_f64_vs_cpu_f64": f64_gap, "tol_f64": tols,
+        "card_vs_cpu": card_gap, "card_plain_vs_cpu": plain_gap,
+        "f32_bands": f32_bands,
+        "card_vs_cpu_f64": gaps(sides["card"], sides["cpu_f64"]),
+        "card_plain_vs_cpu_f64": gaps(sides["card_plain"],
+                                      sides["cpu_f64"]),
+        "cpu_f32_vs_f64": gaps(sides["cpu"], sides["cpu_f64"]),
+        "classes": len(small_rows),
+        "classes_max_rel_err": {dt: max(r[dt]["max_rel_err"]
+                                        for r in small_rows)
+                                for dt in ("f32", "bf16")},
+        "classes_failed": [r for r in small_rows if not r["pass"]]}
+    del sides
+
+    # -- the NaN-skip: midas2 with its untamed output conv -----------------
+    nan_skip = None
+    if name == "midas2":
+        head = eng32.model.net.scratch.output_conv[4]
+        tamed = (head.weight.detach().clone(), head.bias.detach().clone())
+        with torch.no_grad():
+            head.weight.copy_(untamed[0])
+            head.bias.copy_(untamed[1])
+        params_before = {k: p.detach().clone()
+                         for k, p in eng32.params.items()}
+        opt_state = eng32.optimizer.state_dict()["state"]
+        opt_before = {k: {n: v.clone() if torch.is_tensor(v) else v
+                          for n, v in st.items()}
+                      for k, st in opt_state.items()}
+        nan_out = eng32.train_step(data, batches[1][0], batches[1][1])
+        opt_after = eng32.optimizer.state_dict()["state"]
+        nan_skip = {
+            "loss_finite": bool(torch.isfinite(nan_out["loss"])),
+            "skipped": bool(nan_out["skipped_nan"]),
+            "params_unchanged": all(torch.equal(p.detach(), params_before[k])
+                                    for k, p in eng32.params.items()),
+            "optimizer_unchanged": opt_after.keys() == opt_before.keys()
+            and all(all(torch.equal(v, opt_before[k][n]) if torch.is_tensor(v)
+                        else v == opt_before[k][n] for n, v in st.items())
+                    for k, st in opt_after.items())}
+        with torch.no_grad():
+            head.weight.copy_(tamed[0])
+            head.bias.copy_(tamed[1])
+    record.update({
+        "loss_f32": loss32, "skipped_first": bool(first32["skipped_nan"]),
+        "grads_finite": all(bool(torch.isfinite(g).all())
+                            for g in grads32.values()),
+        "kernel_vs_plain_loss_rel": plain_loss_err,
+        "tol_loss": TOL_STEP_LOSS,
+        "kernel_vs_plain_grads_rel_l2": plain_grad_err,
+        "kernel_vs_plain_output_rel_l2": plain_out_err,
+        "tol_grads": TOL_STEP_GRADS, "card_vs_cpu_64x96": cpu_checks,
+        "nan_skip": nan_skip})
+    require(math.isfinite(loss32) and not record["skipped_first"]
+            and record["grads_finite"], f"{name}: first f32 step")
+    require(plain_loss_err <= TOL_STEP_LOSS
+            and plain_out_err <= TOL_STEP_LOSS
+            and plain_grad_err <= TOL_STEP_GRADS,
+            f"{name}: f32 step kernels vs plain {plain_loss_err} / "
+            f"{plain_out_err} / {plain_grad_err}")
+    require(all(f64_gap[k] <= tol for k, tol in tols.items())
+            and all(card_gap[k] <= band for k, band in f32_bands.items()),
+            f"{name}: card vs CPU {cpu_checks}")
+    require(all(r["pass"] for r in small_rows),
+            f"{name}: a 64x96 conv class disagrees with plain "
+            f"{cpu_checks['classes_failed']}")
+    require(nan_skip is None or (not nan_skip["loss_finite"] and all(
+        v for k, v in nan_skip.items() if k != "loss_finite")),
+        f"{name}: NaN-skip {nan_skip}")
+
+    # -- the main path: timed train steps, f32 and bf16 ----------------------
+    train = {}
+    main_routes = {}
+    for dt_name in ("f32", "bf16"):
+        eng = eng32 if dt_name == "f32" else make_engine("bf16")
+        run = drive_train(torch, eng, data, batches[1:], s2d_conv)
+        if dt_name == "f32":
+            run["profile"] = profile_train(torch, eng, data, batches[1:],
+                                           s2d_conv)
+            run["device_idle_share_unprofiled"] = (
+                1.0 - run["profile"]["device_ms_per_step"]
+                / run["ms_per_step"])
+        train[dt_name] = run
+        main_routes[dt_name] = run["route_counts"]
+        require(run["skipped"] == 0, f"{name} {dt_name}: skipped steps")
+        require(run["same_conv_launches"] == n_fwd * run["steps"]
+                and run["grad_input_launches"] == n_gx * run["steps"],
+                f"{name} {dt_name}: {run['same_conv_launches']} / "
+                f"{run['grad_input_launches']} launches in {run['steps']} "
+                "steps")
+        require(all(run["route_counts"][k] == v * run["steps"]
+                    for k, v in routes[dt_name].items()),
+                f"{name} {dt_name}: routes {run['route_counts']}")
+        if dt_name == "bf16":
+            del eng
+    record["train"] = train
+
+    # -- the engine's eval pass and infer, no host read --------------------
+    eidx, evalid = training.eval_batches(n_pairs, TRAIN_BATCH)
+    eidx, evalid = eidx[:EVAL_CHECK_BATCHES], evalid[:EVAL_CHECK_BATCHES]
+    eng32.eval_epoch(data, eidx[:1], evalid[:1])           # warm-up
+    em, ev = timed_pass(torch, s2d_conv, len(eidx),
+                        lambda: eng32.eval_epoch(data, eidx, evalid))
+    frames8 = data["frames"][:BATCH][:, None]
+    depth, inf = timed_pass(torch, s2d_conv, 1, lambda: eng32.infer(frames8))
+    seen = em["frames_seen"]
+    record["engine"] = {
+        "eval": {**ev, "losses_finite": bool(torch.isfinite(em["loss"]).all()),
+                 "depth_positive": bool((em["depth_frames"][seen] > 0).all())},
+        "infer": {**inf, "shape": list(depth.shape),
+                  "finite_positive": bool(torch.isfinite(depth).all()
+                                          and (depth > 0).all())}}
+    require(ev["same_conv_launches"] == n_fwd * len(eidx)
+            and ev["grad_input_launches"] == 0
+            and inf["same_conv_launches"] == n_fwd,
+            f"{name}: engine passes launched {ev['same_conv_launches']} / "
+            f"{inf['same_conv_launches']}")
+    require(record["engine"]["eval"]["losses_finite"]
+            and record["engine"]["eval"]["depth_positive"]
+            and record["engine"]["infer"]["finite_positive"],
+            f"{name}: engine passes {record['engine']}")
+    del eng32
+    torch.cuda.empty_cache()
+
+    # -- serving: bf16 frames/s, bf16 against f32 --------------------------
+    rng = np.random.default_rng(3)
+    videos = {"a": rng.random((FRAMES_PER_VIDEO, *SIZE, 3), dtype=np.float32),
+              "c": rng.random((ODD_FRAMES, *ODD_SIZE, 3), dtype=np.float32)}
+    n_frames = FRAMES_PER_VIDEO + ODD_FRAMES
+    n_batches = FRAMES_PER_VIDEO // BATCH + math.ceil(ODD_FRAMES / BATCH)
+    server = DepthServer(ServeConfig(model_type=name, precision="bf16",
+                                     batch_size=BATCH, device=device))
+    server.infer_videos(videos)                                # warm-up
+    torch.cuda.synchronize()
+    s2d_conv.reset_counts()
+    t0 = time.perf_counter()
+    out16 = server.infer_videos(videos)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = s2d_conv.launches
+    del server
+    server32 = DepthServer(ServeConfig(model_type=name, precision="f32",
+                                       batch_size=BATCH, device=device))
+    out32 = server32.infer_videos(videos)
+    bias = output_bias(name, server32.model)
+    del server32
+    # midas2: the disparity less the output bias, the network's own part
+    part = {v: (network_part(name, bias, out16[v]),
+                network_part(name, bias, out32[v])) for v in videos}
+    rel = {v: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+           for v, (a, b) in part.items()}
+    record["serve"] = {
+        "frames": n_frames, "batches": n_batches, "batch_size": BATCH,
+        "seconds": serve_s, "fps": n_frames / serve_s,
+        "launches": serve_launches, "expected_launches": n_fwd * n_batches,
+        "shapes_ok": all(out16[v].shape == videos[v].shape[:3]
+                         for v in videos),
+        "finite": all(bool(np.isfinite(out16[v]).all()) for v in videos),
+        "bf16_vs_f32_rel_l2": rel, "compared": (
+            "disparity less the output bias" if bias is not None
+            else "depth"), "tol_rel_l2": TOL_SERVE_BF16}
+    require(record["serve"]["shapes_ok"] and record["serve"]["finite"],
+            f"{name}: served depths {record['serve']}")
+    require(serve_launches == n_fwd * n_batches,
+            f"{name}: serving launched {serve_launches}")
+    require(max(rel.values()) < TOL_SERVE_BF16,
+            f"{name}: bf16 against f32 depth {rel}")
+
+    # -- the CLI on phase 11's directory, one epoch ---------------------------
+    record["cli"], cli_routes = backbone_cli(torch, name, s2d_conv, mods,
+                                             cli_dir, n_fwd, n_gx, device)
+    main_routes["f32_cli"] = cli_routes
+    emit(record)
+    return record, main_routes, rows
+
+
+def backbone_cli(torch, name, s2d_conv, mods, cli_dir, n_fwd, n_gx, device):
+    """``--model_type name`` on phase 11's directory for BACKBONE_CLI_EPOCHS
+    epoch(s), in-process: the tag, the output tree, finite artifacts, a
+    checkpoint loading strict, the launches by route, and frame 0's initial
+    depth against the same adapter on the CPU. Its flows, masks and
+    downscaled frames are phase 11's, so those stages are skipped."""
+    image_io = mods["image_io"]
+    args = ["--path", cli_dir, "--model_type", name, "--num_epochs",
+            str(BACKBONE_CLI_EPOCHS)]
+    out = io.StringIO()
+    s2d_conv.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with redirect_stdout(out):
+            initial_dir, tag_dir, frames = mods["cli_main"].main(
+                args, device=device)
+    finally:
+        with open(os.path.join(REPO, "build",
+                               f"chip_smoke_cli_{name}.log"), "w") as log:
+            log.write(out.getvalue())
+    wall = time.perf_counter() - t0
+    launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    routes = dict(s2d_conv.route_counts)
+    n = CLI_FRAMES
+    range_dir = os.path.dirname(tag_dir)
+    depth_files = [os.path.join(d, "depth", f"frame_{i:06d}.raw")
+                   for d in (initial_dir, tag_dir) for i in range(n)]
+    missing = [p for p in depth_files if not os.path.isfile(p)]
+    finite = not missing and all(
+        bool(np.isfinite(image_io.load_raw_float32_image(p)).all())
+        for p in depth_files)
+    evals = sorted(f for f in os.listdir(os.path.join(tag_dir, "eval"))
+                   if f.startswith("loss_e") and f.endswith(".json"))
+    losses_ok = True
+    for f in evals:
+        with open(os.path.join(tag_dir, "eval", f)) as fh:
+            d = json.load(fh)
+        losses_ok &= all(math.isfinite(v) for sub in d.values()
+                         for v in sub.values())
+    ckpt = os.path.join(tag_dir, "checkpoints",
+                        f"{BACKBONE_CLI_EPOCHS:04d}.pth")
+    # strict=True inside the adapter's constructor
+    cpu_model = mods["create_depth_model"](name, checkpoint=ckpt,
+                                           device="cpu")
+    del cpu_model
+    # frame 0's initial depth against the adapter on the CPU, from the
+    # default checkpoint the CLI read
+    images, _ = mods["VideoFrameDataset"](
+        os.path.join(cli_dir, "color_down", "frame_{:06d}.raw"),
+        [0]).load_batch([0])
+    cpu_model = mods["create_depth_model"](name, device="cpu")
+    with torch.inference_mode():
+        d_cpu = 1.0 / cpu_model.apply(torch.from_numpy(images[:, None]))[
+            :, 0].numpy()
+    bias = output_bias(name, cpu_model)
+    del cpu_model
+    # the files hold 1/depth; midas2's less its output bias (the network's
+    # own part), held as the depth is
+    d_card = image_io.load_raw_float32_image(depth_files[0])[None]
+    if bias is not None:
+        d_card, d_cpu = d_card - np.float64(bias), d_cpu - np.float64(bias)
+    cpu_err = rel_err(d_card, d_cpu)
+    pairs = len(mods["metadata_io"].read_flow_list(
+        os.path.join(cli_dir, "flow_list.json"))) // 2
+    steps = -(-pairs // TRAIN_BATCH)
+    forwards = (2 * -(-n // TRAIN_BATCH)
+                + (2 * BACKBONE_CLI_EPOCHS + 1) * steps)
+    want = (n_fwd * forwards, n_gx * BACKBONE_CLI_EPOCHS * steps)
+    result = {
+        "tag": os.path.basename(tag_dir), "wall_s": wall,
+        "range_dir": os.path.basename(range_dir),
+        "initial_dir": os.path.basename(initial_dir),
+        "frames_returned": frames == list(range(n)),
+        "missing_depth_files": missing[:4], "depth_finite": finite,
+        "eval_jsons": evals, "eval_losses_finite": losses_ok,
+        "scales_csv": os.path.isfile(os.path.join(range_dir, "scales.csv")),
+        "launches": list(launches), "expected_launches": list(want),
+        "route_counts": routes,
+        "initial_depth_card_vs_cpu_rel_err": cpu_err, "tol_cpu": TOL_CPU_REF}
+    require(result["tag"] == BACKBONE_TAGS[name]
+            and result["range_dir"] == f"R_hierarchical2_{name}"
+            and result["initial_dir"] == f"depth_{name}",
+            f"{name} CLI tree {result}")
+    require(result["frames_returned"] and finite and result["scales_csv"],
+            f"{name} CLI artifacts {result}")
+    require(len(evals) == BACKBONE_CLI_EPOCHS + 1 and losses_ok,
+            f"{name} CLI eval JSONs {evals}")
+    require(tuple(launches) == want
+            and routes["forward_tf32"] == want[0]
+            and routes["grad_input_tf32"] == want[1],
+            f"{name} CLI launches {launches} {routes}, expected {want}")
+    require(cpu_err < TOL_CPU_REF, f"{name} CLI initial depth card vs CPU "
+            f"{cpu_err}")
+    return result, routes
 
 
 def main() -> int:
@@ -2249,45 +2861,72 @@ def main() -> int:
                            context)
 
     # -- 10. the fine-tune driver: epochs, evals, checkpoints, resume -----
+    # (phase 8's resident data stays for phases 12-13)
     context["engines"].clear()
-    del context["data"]
     torch.cuda.empty_cache()
     driver_path(torch, smi, training, s2d_conv, image_io, torch_import,
                 create_depth_model, per_forward, context)
 
     # -- 11. the pipeline through the CLI, in-process and as python -m ------
+    # -- 12-13. the midas2 and monodepth2 backbones, CLI on phase 11's dir --
     torch.cuda.empty_cache()
-    cli = cli_path(torch, smi, mods, s2d_conv, corr, per_forward,
-                   context["init_sd"])
+    backbones = {}
+    try:
+        cli = cli_path(torch, smi, mods, s2d_conv, corr, per_forward,
+                       context["init_sd"], keep=True)
+        for name in BACKBONES:
+            torch.cuda.empty_cache()
+            _, *backbones[name] = backbone_path(
+                torch, smi, name, training, s2d_conv, mods, LossWeights,
+                DepthServer, ServeConfig, context["data"], CLI_DIR)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    del context["data"]
 
-    # the launches by route of each path that runs the kernel: one train
-    # epoch of phase 9 (179 steps), by precision, and the CLI's run of
-    # phase 11 (f32); each conv entry sums its classes per batch-8 forward
-    # (phase 3) or per train step (phase 7), for each route the plan gives
-    # a class of the main path (the FMA template, for the shapes the
+    # the launches by route of each path that runs the kernel. mc's conv
+    # entries: one train epoch of phase 9 (179 steps), by precision, and
+    # the CLI's run of phase 11 (f32), with the times of mc's classes per
+    # batch-8 forward (phase 3) or per train step (phase 7). Each
+    # backbone's entries (same_conv_<name>...): its timed train steps (by
+    # precision) and CLI run (f32) of phases 12-13, with the times of its
+    # own classes per batch-8 forward or per step. One entry per route the
+    # plan gives a class of the path (the FMA template, for the shapes the
     # tensor-core kernels do not take, has none at present)
     conv_tpu = "consistent_depth_tpu/ops/s2d_conv.py:168"
     vjp_tpu = "consistent_depth_tpu/models/layers.py:321"
+    def mc_runs(dt, key):
+        return {"epoch": epochs[dt]["train_epoch"]["route_counts"][key],
+                "cli": cli["route_counts"][key] if dt == "f32" else 0}
+
+    def backbone_runs(runs):
+        return lambda dt, key: {
+            "train": runs[dt][key],
+            "cli": runs["f32_cli"][key] if dt == "f32" else 0}
+
+    paths = [("", rows, gx_rows, "per_forward", "per_step", mc_runs)]
+    for b, (runs, brows) in backbones.items():
+        paths.append((
+            "_" + b, [r for r in brows if r["direction"] == "forward"],
+            [r for r in brows if r["direction"] == "grad_input"], "count",
+            "count", backbone_runs(runs)))
     entries = []
-    for dt in ("bf16", "f32"):
-        counts = epochs[dt]["train_epoch"]["route_counts"]
-        cli_counts = (cli["route_counts"] if dt == "f32"
-                      else dict.fromkeys(cli["route_counts"], 0))
-        for route in s2d_conv.ROUTES:
-            suffix = ("" if dt == "bf16" else "_f32") + (
-                "_fma" if route == "fma" else "")
-            for name, key, rows_of, count_key, replaces in (
-                    ("same_conv", "forward_", rows, "per_forward", conv_tpu),
-                    ("same_conv_grad_input", "grad_input_", gx_rows,
-                     "per_step", vjp_tpu)):
-                by_path = {"epoch": counts[key + route],
-                           "cli": cli_counts[key + route]}
-                entry = conv_entry(name + suffix, replaces,
-                                   sum(by_path.values()), rows_of, count_key,
-                                   dt, route)
-                if entry is not None:
-                    entry["launches_by_path"] = by_path
-                entries.append(entry)
+    for path, fwd_rows, bwd_rows, fwd_key, bwd_key, runs_of in paths:
+        for dt in ("bf16", "f32"):
+            for route in s2d_conv.ROUTES:
+                suffix = path + ("" if dt == "bf16" else "_f32") + (
+                    "_fma" if route == "fma" else "")
+                for name, key, rows_of, count_key, replaces in (
+                        ("same_conv", "forward_", fwd_rows, fwd_key,
+                         conv_tpu),
+                        ("same_conv_grad_input", "grad_input_", bwd_rows,
+                         bwd_key, vjp_tpu)):
+                    by_path = runs_of(dt, key + route)
+                    entry = conv_entry(name + suffix, replaces,
+                                       sum(by_path.values()), rows_of,
+                                       count_key, dt, route)
+                    if entry is not None:
+                        entry["launches_by_path"] = by_path
+                    entries.append(entry)
     # the correlation's two routes: the banded kernel at the main path's
     # shape, and the generic kernel on the same inputs (it has no main-path
     # launches); no one PyTorch call computes a cost volume

@@ -12,8 +12,9 @@ network to bf16, while training keeps f32 parameters and BN running stats
 and computes in bf16, as the JAX package's bf16 mode does
 (``layers.py::set_compute_dtype``).
 
-Weights come from a ``.pth`` checkpoint in the torch state_dict layout or,
-for ``checkpoint=""``, from a seeded initialisation. The default checkpoint
+Weights come from a ``.pth`` checkpoint in the torch state_dict layout (or
+an adapter's own released layout, ``_read_checkpoint``) or, for
+``checkpoint=""``, from a seeded initialisation. The default checkpoint
 of an adapter lies under ``$CDTPU_CHECKPOINT_DIR`` when that is set, else
 under ``./checkpoints``, as the flow backend's does. Nothing is ever
 downloaded: a checkpoint path that does not exist raises.
@@ -22,7 +23,7 @@ downloaded: a checkpoint path that does not exist raises.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -47,21 +48,29 @@ class DepthModel:
         caller asks for the CPU."""
         if checkpoint is None:
             checkpoint = self.default_checkpoint_path()
+        # before the network is built: a missing file fails at once
+        if checkpoint and not os.path.exists(checkpoint):
+            raise FileNotFoundError(
+                f"checkpoint '{checkpoint}' not found (the port never "
+                "downloads weights; pass checkpoint='' for a seeded "
+                "initialisation)")
         # built on the meta device so that construction draws nothing from
         # the global RNG; every value is then set explicitly below
         with torch.device("meta"):
             net = self._make_module()
         net = net.to_empty(device="cpu")
-        init_parameters(net, torch.Generator().manual_seed(seed))
         if checkpoint:
-            if not os.path.exists(checkpoint):
-                raise FileNotFoundError(
-                    f"checkpoint '{checkpoint}' not found (the port never "
-                    "downloads weights; pass checkpoint='' for a seeded "
-                    "initialisation)")
-            from .torch_import import load_checkpoint
-
-            net.load_state_dict(load_checkpoint(checkpoint), strict=True)
+            # the strict load sets every parameter and buffer but the BN
+            # batch counters a checkpoint may lack, which start at 0; no
+            # seeded init first (seconds of host time for MiDaS's 105 M
+            # parameters)
+            for m in net.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.reset_running_stats()
+            net.load_state_dict(self._read_checkpoint(checkpoint),
+                                strict=True)
+        else:
+            init_parameters(net, torch.Generator().manual_seed(seed))
         self.net = net.eval()
         self.device = torch.device("cpu")
         self.dtype = torch.float32
@@ -94,6 +103,13 @@ class DepthModel:
     # -- provided by subclasses -------------------------------------------
     def _make_module(self) -> nn.Module:
         raise NotImplementedError
+
+    def _read_checkpoint(self, path: str) -> Dict[str, torch.Tensor]:
+        """The state_dict of the checkpoint at ``path`` under the module's
+        keys; an adapter whose released layout differs overrides it."""
+        from .torch_import import load_checkpoint
+
+        return load_checkpoint(path)
 
     def estimate_depth(self, images: torch.Tensor) -> torch.Tensor:
         """(B, N, H, W, 3) in the compute dtype -> (B, N, H, W) depth in

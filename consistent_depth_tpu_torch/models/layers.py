@@ -1,5 +1,6 @@
 """Layers: the port of the subset of ``consistent_depth_tpu/models/layers.py``
-that the MannequinChallenge network and the FlowNet family use.
+that the backbones (MannequinChallenge, monodepth2, MiDaS v2) and the FlowNet
+family use.
 
 - :class:`SameConv2d`: ``nn.Conv2d`` whose stride-1, dilation-1,
   same-padding, odd k >= 3 convs run through the hand-written CUDA kernel
@@ -13,8 +14,12 @@ that the MannequinChallenge network and the FlowNet family use.
   package reproduces (``TorchBatchNorm``, ``avg_pool_2x``,
   ``upsample_bilinear_2x``). Batch norm takes a bf16 input beside f32
   running stats: it computes the statistics in f32 and returns bf16.
-- :func:`resize_bilinear`: ``F.interpolate(mode="bilinear")``, which the
-  JAX package reproduces with interpolation matmuls.
+- :func:`resize_bilinear`, :func:`resize_bicubic`: ``F.interpolate``,
+  which the JAX package reproduces with interpolation matmuls whose border
+  taps are folded onto the clamped edge samples as torch's are (so the
+  bicubic downsample back from monodepth2's feed matches too), and
+  :func:`upsample_nearest_2x`. The JAX package's ``max_pool`` is
+  ``nn.MaxPool2d`` (its padding enters as -inf, as torch's does).
 - :func:`init_parameters`: flax's ``lecun_normal`` initialisation (a
   normal truncated at two standard deviations, scaled by the fan-in) from an
   explicit generator.
@@ -67,6 +72,19 @@ def resize_bilinear(x: torch.Tensor, out_hw,
     """Bilinear resize of an NCHW tensor to ``out_hw`` (no antialiasing)."""
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                          align_corners=align_corners)
+
+
+def resize_bicubic(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bicubic resize (A = -0.75, align_corners=False, no antialiasing) of
+    an NCHW tensor to ``out_hw``."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bicubic",
+                         align_corners=False)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """``F.interpolate(scale_factor=2, mode="nearest")`` of an NCHW
+    tensor."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:

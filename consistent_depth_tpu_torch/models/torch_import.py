@@ -20,6 +20,13 @@ maps each to its flax path with the JAX importer's rule (``_flax_path`` of
 :func:`checkpoint_for_module` does the same for a ``.pth``, so a released
 checkpoint (``flownets_1.conv3_1.0.weight``) and one the JAX package wrote
 (``flownets.1.conv3.1.0.weight``) both load.
+
+The key rule spells monodepth2's keys as released (``encoder.layer1.0.conv1``,
+``decoder.0.conv.conv``). MiDaS's decoder modules are flat in the JAX package
+(``scratch_layer1_rn``, ``scratch_output_conv_0``), so its keys come out as
+``scratch_layer1_rn.weight`` and ``scratch_output_conv.0.weight``;
+:func:`released_midas_keys` respells them as released (``scratch.layer1_rn``,
+``scratch.output_conv.0``), which the JAX package's MiDaS loader reads too.
 """
 
 from __future__ import annotations
@@ -75,6 +82,18 @@ def state_dict_from_jax_variables(
         name = {"mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
         out[_torch_key(mods, name)] = np.asarray(value)
     return out
+
+
+def released_midas_keys(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """A MiDaS state_dict in the released spelling: ``scratch_layer1_rn``,
+    ``scratch_refinenet4`` and ``scratch_output_conv.0`` become
+    ``scratch.layer1_rn``, ``scratch.refinenet4`` and
+    ``scratch.output_conv.0`` (the reverse of the JAX loader's rewrite,
+    ``consistent_depth_tpu/models/midas_v2.py:145-154``); released keys
+    pass as they are."""
+    return {("scratch." + k[len("scratch_"):]
+             if k.startswith("scratch_") else k): v
+            for k, v in state_dict.items()}
 
 
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:

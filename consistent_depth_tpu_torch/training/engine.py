@@ -178,13 +178,20 @@ class TrainingEngine:
         self.optimizer.zero_grad(set_to_none=True)
         loss, batch_losses, depth = self._loss(batch, valid, train=True)
         loss.backward()
+        # a parameter outside the forward (MiDaS's refinenet4.resConfUnit1)
+        # gets an exact zero gradient, as JAX gives it: the optimizers then
+        # treat it as optax does (Adam leaves it, AdamW still decays it)
+        # where a None gradient would make them skip it
+        for p in self.params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         # skip on a non-finite loss AND on non-finite gradients: a finite
         # loss can still carry 0*inf gradients through the 1/z backward
         # at degenerate depths. One multi-tensor pass over the gradients
         # (the check of torch.amp's GradScaler, at scale 1, which leaves
         # every finite value as it is) sets ``found`` to 1 on any NaN/inf;
         # the fused optimizer then skips its update where it is 1.
-        grads = [p.grad for p in self.params.values() if p.grad is not None]
+        grads = [p.grad for p in self.params.values()]
         found = torch.zeros((), device=loss.device)
         torch._amp_foreach_non_finite_check_and_unscale_(
             grads, found, torch.ones((), device=loss.device))

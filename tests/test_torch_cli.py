@@ -44,6 +44,18 @@ systematic difference. The post-training band 0.1 is 2.1x the largest
 spread (0.0481), where ``test_golden_parity``'s 0.05 would leave 1.04x;
 the final-depth band 0.02 is 3.2x.
 
+``--model_type monodepth2`` (the KITTI preset's backbone) runs the same
+way, with no epoch: the port's entry point ``cli.main.main`` and the
+one-device JAX CLI each read the default checkpoint directory
+``$CDTPU_CHECKPOINT_DIR/monodepth2_mono+stereo_1024x320`` (the JAX seed-0
+weights as ``encoder.pth``, whose height and width set a 64x128 feed, and
+``depth.pth``; the JAX side with ``CDTPU_NO_FETCH=1``). Against each other:
+the output tree file for file, the tag (``..._LR4e-05_...``, the
+backbone's own learning rate), the initial depth (RMSE max < 1e-3), the
+scales (rtol 1e-3) and the pre-training eval losses per pair (1e-3). The
+midas2 CLI runs on the card only (``chip_smoke.py``): its ResNeXt-101 at
+full width on this CPU would not fit the suite's time.
+
 A second port run, through ``cli.main.main`` on a copy of the trained
 directory with the weights as ``$CDTPU_CHECKPOINT_DIR/mc.pth``, redoes
 nothing before "Fine-tuning": no file outside the tag directory changes,
@@ -129,6 +141,46 @@ def _dataset(tmp_path_factory, name):
     path = str(tmp_path_factory.mktemp(name))
     synthetic.build_e2e_dataset(path)
     return path
+
+
+MONODEPTH2_DIR = "monodepth2_mono+stereo_1024x320"
+MONODEPTH2_FEED = (64, 128)
+
+
+@pytest.fixture(scope="module")
+def monodepth2_runs(tmp_path_factory):
+    """The port's CLI (``cli.main.main``) and the one-device JAX CLI with
+    ``--model_type monodepth2 --num_epochs 0`` on the seeded checkpoint
+    directory, found as the default under ``$CDTPU_CHECKPOINT_DIR``."""
+    from consistent_depth_tpu.models.monodepth2 import (
+        Monodepth2Model as JaxMonodepth2)
+
+    ckpt_dir = tmp_path_factory.mktemp("monodepth2_weights")
+    sd = jax_torch_import.variables_to_state_dict(jax.tree_util.tree_map(
+        np.asarray, JaxMonodepth2(checkpoint="", seed=0).variables))
+    os.makedirs(ckpt_dir / MONODEPTH2_DIR)
+    height, width = MONODEPTH2_FEED
+    torch.save({**{k: torch.from_numpy(v) for k, v in sd.items()
+                   if k.startswith("encoder.")},
+                "height": height, "width": width, "use_stereo": False},
+               str(ckpt_dir / MONODEPTH2_DIR / "encoder.pth"))
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()
+                if k.startswith("decoder.")},
+               str(ckpt_dir / MONODEPTH2_DIR / "depth.pth"))
+    args = synthetic.E2E_PIPELINE_ARGS + ["--model_type", "monodepth2",
+                                          "--num_epochs", "0"]
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CDTPU_CHECKPOINT_DIR", str(ckpt_dir))
+        mp.setenv("CDTPU_NO_FETCH", "1")
+        jax_path = _dataset(tmp_path_factory, "jax_monodepth2")
+        jparams = JaxParamsParser().parse(["--path", jax_path] + args)
+        jparams.use_mesh = False
+        out["jax"] = (jax_path, JaxDatasetProcessor().process(jparams))
+        port_path = _dataset(tmp_path_factory, "port_monodepth2")
+        out["port"] = (port_path, cli_main.main(["--path", port_path] + args,
+                                                device="cpu"))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -246,6 +298,39 @@ def test_final_depth_matches_jax(runs):
                               pjoin(runs["port"], RANGE, TAG, "depth"))
     assert d["frames_compared"] == 6 and not d["frames_only_a"]
     assert d["rmse_max"] < TOL_FINAL_RMSE, d
+
+
+def test_monodepth2_cli_matches_jax(monodepth2_runs):
+    (port, (port_init, port_out, frames)), (jax_path, (jax_init, jax_out, _)) \
+        = monodepth2_runs["port"], monodepth2_runs["jax"]
+    assert frames == list(range(6))
+    tag = os.path.basename(port_out)
+    assert tag == os.path.basename(jax_out) and "_LR4e-05_" in tag, tag
+    assert _tree(port) == _tree(jax_path)
+    rng = "R_hierarchical2_monodepth2"
+    assert os.path.relpath(port_out, port) == pjoin(rng, tag)
+    assert os.path.basename(port_init) == "depth_monodepth2"
+    d = ca.compare_depth_dirs(pjoin(jax_init, "depth"),
+                              pjoin(port_init, "depth"))
+    assert d["frames_compared"] == 6 and not d["frames_only_a"]
+    assert d["rmse_max"] < 1e-3, d
+    got, want = (metadata_io.read_scales_csv(pjoin(p, rng, "scales.csv"))
+                 for p in (port, jax_path))
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=1e-3)
+    name = "loss_e0000_iter000000.json"
+    assert sorted(os.listdir(pjoin(jax_out, "eval"))) == sorted(
+        os.listdir(pjoin(port_out, "eval")))
+    with open(pjoin(port_out, "eval", name)) as f:
+        got = json.load(f)
+    with open(pjoin(jax_out, "eval", name)) as f:
+        want = json.load(f)
+    assert got.keys() == want.keys() == {"reprojection", "disparity", "mean"}
+    for key in want:
+        assert got[key].keys() == want[key].keys(), key
+        for pair in want[key]:
+            np.testing.assert_allclose(got[key][pair], want[key][pair],
+                                       rtol=TOL_PRE, err_msg=f"{key} {pair}")
 
 
 def _mtimes(root, skip):

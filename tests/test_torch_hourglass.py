@@ -132,15 +132,26 @@ def test_seeded_init_is_deterministic_and_lecun():
         11 * 11 * 64) + 1e-6
 
 
-def test_registry_only_mc():
+def test_registry_only_mc(tmp_path, monkeypatch):
+    """The registry returns each backbone's adapter (midas2 and monodepth2
+    are ported too); building one whose default weights are missing
+    raises, naming the path; an unknown name raises."""
     from consistent_depth_tpu_torch.models import registry
     from consistent_depth_tpu_torch.models.mannequin_challenge import (
         MannequinChallengeModel)
+    from consistent_depth_tpu_torch.models.midas_v2 import MidasV2Model
+    from consistent_depth_tpu_torch.models.monodepth2 import Monodepth2Model
 
     assert registry.get_depth_model("mc") is MannequinChallengeModel
-    for name in ("midas2", "monodepth2"):
-        with pytest.raises(NotImplementedError):
-            registry.create_depth_model(name)
+    monkeypatch.setenv("CDTPU_CHECKPOINT_DIR", str(tmp_path))
+    for name, cls, default in (
+            ("midas2", MidasV2Model, "midas2.pth"),
+            ("monodepth2", Monodepth2Model,
+             "monodepth2_mono+stereo_1024x320")):
+        assert registry.get_depth_model(name) is cls
+        with pytest.raises(FileNotFoundError) as err:
+            registry.create_depth_model(name, device="cpu")
+        assert str(tmp_path / default) in str(err.value)
     with pytest.raises(ValueError):
         registry.get_depth_model("dpt")
 

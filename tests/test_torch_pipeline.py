@@ -92,10 +92,15 @@ def test_flag_surface_matches_jax():
         JaxParamsParser().parser)
 
 
-def test_model_defaults_match_jax():
+def test_model_defaults_match_jax(tmp_path, monkeypatch):
     """Fault 1: the defaults the CLI resolves ``--learning_rate 0``,
     ``--lambda_view_baseline -1`` and ``--align 0`` from, for every
-    backbone the flag takes; the unported ones still refuse to build."""
+    backbone the flag takes; midas2 and monodepth2 are the real adapters,
+    and with their default weights missing they raise, naming the path,
+    before any download or build."""
+    from consistent_depth_tpu_torch.models.midas_v2 import MidasV2Model
+    from consistent_depth_tpu_torch.models.monodepth2 import Monodepth2Model
+
     assert registry.get_depth_model_list() == \
         jax_registry.get_depth_model_list()
     for name in registry.get_depth_model_list():
@@ -105,9 +110,15 @@ def test_model_defaults_match_jax():
             assert getattr(got, attr) == getattr(want, attr), (name, attr)
     assert MannequinChallengeModel.learning_rate == 0.0004
     assert MannequinChallengeModel.lambda_view_baseline == 0.1
-    for name in ("midas2", "monodepth2"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    monkeypatch.setenv("CDTPU_CHECKPOINT_DIR", str(tmp_path))
+    for name, cls, default in (
+            ("midas2", MidasV2Model, "midas2.pth"),
+            ("monodepth2", Monodepth2Model,
+             "monodepth2_mono+stereo_1024x320")):
+        assert registry.get_depth_model(name) is cls
+        with pytest.raises(FileNotFoundError) as err:
             registry.create_depth_model(name, device="cpu")
+        assert str(tmp_path / default) in str(err.value)
 
 
 def test_default_checkpoint_under_checkpoint_dir(tmp_path, monkeypatch):
