@@ -31,7 +31,11 @@ its plain PyTorch version:
   dataset of 24 frames of a synthetic plane scene (every kernel above);
 - the midas2 and monodepth2 backbones at full width and depth: their conv
   classes, the train step, the engine's passes, serving and the CLI (the
-  k x k conv kernel on their stride-1 3x3 convs, forward and grad-input).
+  k x k conv kernel on their stride-1 3x3 convs, forward and grad-input);
+- the data mesh (``consistent_depth_tpu_torch.parallel``): the ``mc`` train
+  step, the paired eval and serving on two ranks that share the card over
+  gloo, and the train step on one NCCL rank (the k x k conv kernel, forward
+  and grad-input, in every rank).
 
 Phases, each printing one JSON line:
 
@@ -161,11 +165,29 @@ Phases, each printing one JSON line:
    route, frame 0's initial depth against the CPU. midas2's outputs are
    compared less its output bias, the network's own part of its disparity.
    The directory is deleted after phase 13.
+14. mesh: (a) two ranks spawned on cuda:0 with gloo (NCCL refuses two
+   ranks on one GPU) and (c) the same ranks serving, against the
+   one-process engine and server run meanwhile on the same inputs: phase
+   8's recipe at global batch 4 (2 per rank), the paired f32 eval's first 4
+   batches from the initial weights, then 3 ``train_step``s in f32 and in
+   bf16: the first f32 loss within phase 8's band, the later ones within
+   tests/test_torch_epoch.py's band for the step after an Adam update, bf16
+   within phase 8's bf16 band, the parameters within tests/test_engine.py's
+   band for the JAX mesh step, both ranks' states bitwise equal, each rank's k x k launches and
+   routes equal to the one-process run's; 35 frames served at batch 8 in
+   bf16, the ranks' depths equal and within serving's bf16 band of the
+   one-process server. (b) ``make_mesh()`` under a one-rank environment
+   (NCCL on cuda:0, the global BN path): its f32 step against the engine
+   without a mesh (loss and gradients), then 20 interleaved timed steps of
+   each, medians from CUDA events, the NCCL step's extra ms, and each
+   engine's device time and idle share over 5 profiled steps; seconds of
+   the phase.
 
 Then the card's name and power limit as nvidia-smi prints them, a
 ``{"kernels": [...]}`` line, whose launches add up each path's run
 (``launches_by_path`` splits them): for the conv's mc entries one phase-9
-epoch per precision and phase 11, with the times of mc's classes; for each
+epoch per precision, phase 11 and phase 14's mesh ranks (``mesh``), with
+the times of mc's classes; for each
 backbone's entries (``same_conv_midas2``, ...) its timed steps and CLI run,
 with the times of its own classes; phase 6 and phase 11 for the
 correlation. Last comes ``{"ok": true, "device": {...}}``.
@@ -352,6 +374,30 @@ MONODEPTH2_FEED = (320, 1024)
 BACKBONE_CLI_EPOCHS = 1
 BACKBONE_TAGS = {"midas2": "B0.0001_R1.0_PL1-0_LR0.0001_BS4_Oadam",
                  "monodepth2": "B1_R1.0_PL1-0_LR4e-05_BS4_Oadam"}
+
+
+# mesh path (phase 14): two ranks on the one card over gloo (NCCL refuses
+# two ranks on one GPU), phase 8's recipe at global batch TRAIN_BATCH (2 per
+# rank): MESH_STEPS train steps per precision, the paired f32 eval's first
+# MESH_EVAL_BATCHES batches, and MESH_SERVE_FRAMES frames served at batch
+# BATCH in bf16; against the one-process engine and server on the same
+# inputs. A step after the first Adam update moves every parameter by about
+# lr times the sign of its gradient, so gradients near zero whose sign
+# differs by rounding move by the whole lr: the later steps' losses take
+# tests/test_torch_epoch.py's band for that step. Then one rank over NCCL
+# (make_mesh's defaults) against the engine without a mesh, and
+# MESH_TIMED_STEPS timed f32 steps of each, interleaved
+MESH_RANKS = 2
+MESH_STEPS = 3
+MESH_EVAL_BATCHES = 4
+MESH_SERVE_FRAMES = 35
+MESH_TIMED_STEPS = 20
+TOL_MESH_LATER_LOSS = 1e-3
+# the parameters after the steps: tests/test_engine.py's band for the JAX
+# mesh step against the one-device step (the sharded BN reductions
+# reassociate, and train-mode BN amplifies that through ~70 layers)
+TOL_MESH_PARAMS = 5e-2
+MESH_DIR = os.path.join(REPO, "build", "chip_smoke_mesh")
 
 
 def require(cond, what: str) -> None:
@@ -2547,6 +2593,315 @@ def backbone_cli(torch, name, s2d_conv, mods, cli_dir, n_fwd, n_gx, device):
     return result, routes
 
 
+def mesh_work(torch, mods, init_sd, workload, mesh, device):
+    """Phase 14's run on ``device``: per precision an engine (over ``mesh``
+    when given) from ``init_sd``; in f32 the paired eval's first
+    MESH_EVAL_BATCHES batches, then MESH_STEPS train steps, with the conv
+    wrappers' counts zeroed just before the steps and read just after; then
+    MESH_SERVE_FRAMES frames served in bf16. Returns host copies."""
+    training, s2d_conv = mods["training"], mods["s2d_conv"]
+    n_pairs = len(workload["pair_ids"])
+    batches = list(islice(training.PairBatchIterator(
+        n_pairs, TRAIN_BATCH, seed=0).epoch(0), MESH_STEPS))
+    eidx, evalid = training.eval_batches(n_pairs, TRAIN_BATCH)
+    out = {}
+    for precision in ("f32", "bf16"):
+        model = mods["create_depth_model"]("mc", checkpoint="", device=device)
+        model.net.load_state_dict(init_sd)
+        eng = training.TrainingEngine(
+            model, training.create_optimizer("Adam", TRAIN_LR),
+            mods["LossWeights"](lambda_view_baseline=0.1,
+                                lambda_reprojection=1.0),
+            precision=precision, mesh=mesh)
+        data = eng.put_data(workload)
+        run = {}
+        if precision == "f32":
+            m = eng.eval_epoch(data, eidx[:MESH_EVAL_BATCHES],
+                               evalid[:MESH_EVAL_BATCHES])
+            run["eval"] = {k: m[k].double().cpu() for k in
+                           ("loss", "reprojection", "disparity")}
+        torch.cuda.synchronize(device)
+        s2d_conv.reset_counts()
+        steps = [eng.train_step(data, idx, valid) for idx, valid in batches]
+        torch.cuda.synchronize(device)
+        run["launches"] = [s2d_conv.launches, s2d_conv.grad_input_launches]
+        run["routes"] = dict(s2d_conv.route_counts)
+        run["losses"] = [float(m["loss"]) for m in steps]
+        run["skipped"] = sum(bool(m["skipped_nan"]) for m in steps)
+        run["state"] = {k: v.detach().cpu() for k, v in
+                        model.net.state_dict().items()}
+        out[precision] = run
+        del eng, data, model
+    frames = np.random.default_rng(2).random(
+        (MESH_SERVE_FRAMES, *SIZE, 3), dtype=np.float32)
+    server = mods["DepthServer"](mods["ServeConfig"](
+        model_type="mc", checkpoint="", precision="bf16", batch_size=BATCH,
+        device=str(device), mesh=mesh))
+    out["serve"] = server.infer_frames(frames)
+    return out
+
+
+def mesh_rank(rank, store, init_path):
+    """One of phase 14's gloo ranks, both on cuda:0; writes its results
+    beside ``store``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(MESH_RANKS),
+                      LOCAL_RANK=str(rank))
+    from consistent_depth_tpu_torch.parallel import make_mesh
+
+    mods = mesh_modules()
+    mesh = make_mesh(device="cuda:0", backend="gloo",
+                     init_method="file://" + store)
+    try:
+        init_sd = torch.load(init_path, map_location="cuda:0")
+        workload = make_train_workload(mods["training"], SIZE)
+        out = mesh_work(torch, mods, init_sd, workload, mesh, mesh.device)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{store}_rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def mesh_modules():
+    """The port's modules that phase 14 calls, by name."""
+    from consistent_depth_tpu_torch import training
+    from consistent_depth_tpu_torch.models.registry import create_depth_model
+    from consistent_depth_tpu_torch.ops import s2d_conv
+    from consistent_depth_tpu_torch.ops.losses import LossWeights
+    from consistent_depth_tpu_torch.serving import DepthServer, ServeConfig
+
+    return {"training": training, "create_depth_model": create_depth_model,
+            "s2d_conv": s2d_conv, "LossWeights": LossWeights,
+            "DepthServer": DepthServer, "ServeConfig": ServeConfig}
+
+
+def routes_of(counts):
+    """The launches by route of a ``route_counts`` copy."""
+    return {k: v for k, v in counts.items()
+            if k.startswith(("forward_", "grad_input_"))}
+
+
+def mesh_checks(torch, got, ref, init_sd, per_forward):
+    """Phase 14's gloo ranks (``got``, one per rank) against the one-process
+    run (``ref``), both from :func:`mesh_work`: per precision (a) the
+    losses, the parameters, the ranks' states and launches; the eval
+    batches; (c) the served depths."""
+    checks = {}
+    param_keys = [k for k in init_sd
+                  if not k.endswith(("running_mean", "running_var",
+                                     "num_batches_tracked"))]
+    for dt in ("f32", "bf16"):
+        want = ref[dt]
+        c = checks[dt] = {
+            "losses": [g[dt]["losses"] for g in got],
+            "ref_losses": want["losses"],
+            "loss_rel": [max(abs(a - b) / abs(b) for a, b in
+                             zip(g[dt]["losses"], want["losses"]))
+                         for g in got],
+            "first_loss_rel": max(abs(g[dt]["losses"][0] - want["losses"][0])
+                                  / abs(want["losses"][0]) for g in got),
+            "params_rel_l2": max(rel_l2(
+                {k: g[dt]["state"][k] for k in param_keys},
+                {k: want["state"][k] for k in param_keys}) for g in got),
+            "replicas_bitwise": all(
+                torch.equal(got[0][dt]["state"][k], got[1][dt]["state"][k])
+                for k in init_sd),
+            "launches_per_rank": [g[dt]["launches"] for g in got],
+            "ref_launches": want["launches"],
+            # by route; the split of the reduction depends on the batch
+            "routes_equal": all(routes_of(g[dt]["routes"])
+                                == routes_of(want["routes"]) for g in got),
+            "skipped": [g[dt]["skipped"] for g in got] + [want["skipped"]]}
+    checks["per_forward"] = per_forward
+    e, want = [g["f32"]["eval"] for g in got], ref["f32"]["eval"]
+    checks["eval_f32"] = {
+        "batches": MESH_EVAL_BATCHES,
+        "loss_rel": max(float(((x["loss"] - want["loss"]).abs()
+                               / want["loss"].abs()).max()) for x in e),
+        "pair_loss_rel": max(float(((x[k] - want[k]).abs()
+                                    / want[k].abs().clamp_min(1e-30)).max())
+                             for x in e for k in ("reprojection",
+                                                  "disparity"))}
+    serve_rel = max(float(np.linalg.norm(g["serve"] - ref["serve"])
+                          / np.linalg.norm(ref["serve"])) for g in got)
+    serve = {"frames": MESH_SERVE_FRAMES, "batch_size": BATCH,
+             "precision": "bf16",
+             "shape_ok": all(g["serve"].shape == (MESH_SERVE_FRAMES, *SIZE)
+                             for g in got),
+             "finite": all(bool(np.isfinite(g["serve"]).all()) for g in got),
+             "ranks_equal": bool(np.array_equal(got[0]["serve"],
+                                                got[1]["serve"])),
+             "vs_one_process_rel_l2": serve_rel, "tol": TOL_SERVE_BF16}
+    return checks, serve
+
+
+def mesh_require(checks, serve):
+    """Fail unless phase 14's gloo ranks held against the one-process run."""
+    per_forward = checks["per_forward"]
+    for dt in ("f32", "bf16"):
+        c = checks[dt]
+        require(c["replicas_bitwise"], f"mesh {dt}: the ranks' states differ")
+        require(all(n == c["ref_launches"] for n in c["launches_per_rank"])
+                and c["routes_equal"],
+                f"mesh {dt}: launches {c['launches_per_rank']} per rank, "
+                f"{c['ref_launches']} in one process")
+        require(c["ref_launches"] == [MESH_STEPS * per_forward,
+                                      MESH_STEPS * (per_forward - 1)],
+                f"mesh {dt}: {c['ref_launches']} launches in one process")
+        require(not any(c["skipped"]), f"mesh {dt}: skipped steps")
+        require(c["params_rel_l2"] <= TOL_MESH_PARAMS,
+                f"mesh {dt}: params {c['params_rel_l2']}")
+    f32, bf16 = checks["f32"], checks["bf16"]
+    require(f32["first_loss_rel"] <= TOL_STEP_LOSS,
+            f"mesh f32 first loss {f32['first_loss_rel']}")
+    require(max(f32["loss_rel"]) <= TOL_MESH_LATER_LOSS,
+            f"mesh f32 losses {f32['loss_rel']}")
+    require(max(bf16["loss_rel"]) <= TOL_TRAIN_BF16,
+            f"mesh bf16 losses {bf16['loss_rel']}")
+    require(checks["eval_f32"]["loss_rel"] <= TOL_STEP_LOSS
+            and checks["eval_f32"]["pair_loss_rel"] <= TOL_EVAL_PLAIN,
+            f"mesh eval {checks['eval_f32']}")
+    require(serve["shape_ok"] and serve["finite"] and serve["ranks_equal"]
+            and serve["vs_one_process_rel_l2"] <= TOL_SERVE_BF16,
+            f"mesh serving {serve}")
+
+
+def mesh_path(torch, smi, init_sd, per_forward):
+    """Phase 14: the data mesh on the card. (a) and (c): two gloo ranks on
+    cuda:0, spawned, against the one-process engine and server run here
+    meanwhile; (b): one NCCL rank from make_mesh's defaults against the
+    engine without a mesh, with both step times. Returns the mesh ranks'
+    launches by route, summed over the ranks, per precision."""
+    import pickle
+    import socket
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from consistent_depth_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    mods = mesh_modules()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    init_path = os.path.join(MESH_DIR, "init.pt")
+    torch.save({k: v.cpu() for k, v in init_sd.items()}, init_path)
+    store = os.path.join(MESH_DIR, "store")
+    ranks = mp.start_processes(mesh_rank, args=(store, init_path),
+                               nprocs=MESH_RANKS, join=False,
+                               start_method="spawn")
+    try:
+        workload = make_train_workload(mods["training"], SIZE)
+        ref = mesh_work(torch, mods, init_sd, workload, None,
+                        torch.device("cuda:0"))
+        while not ranks.join():
+            pass
+    finally:
+        for proc in ranks.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+    got = []
+    for r in range(MESH_RANKS):
+        with open(f"{store}_rank{r}.pkl", "rb") as f:
+            got.append(pickle.load(f))
+    spawned_s = time.perf_counter() - t0
+
+    checks, serve = mesh_checks(torch, got, ref, init_sd, per_forward)
+    emit({"phase": "mesh_gloo", "ranks": MESH_RANKS, "device": "cuda:0",
+          "backend": "gloo", "steps": MESH_STEPS, **checks,
+          "tol_first_loss": TOL_STEP_LOSS,
+          "tol_later_loss": TOL_MESH_LATER_LOSS,
+          "tol_bf16_loss": TOL_TRAIN_BF16, "tol_params": TOL_MESH_PARAMS,
+          "tol_eval_loss": TOL_STEP_LOSS, "tol_eval_pairs": TOL_EVAL_PLAIN,
+          "serve": serve, "seconds": spawned_s, "nvidia_smi": smi})
+    mesh_require(checks, serve)
+
+    # (b) one rank over NCCL, make_mesh's defaults
+    t1 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    with env_var("RANK", "0"), env_var("WORLD_SIZE", "1"), \
+            env_var("LOCAL_RANK", "0"), env_var("MASTER_ADDR", "127.0.0.1"), \
+            env_var("MASTER_PORT", port):
+        mesh = make_mesh()
+    try:
+        training = mods["training"]
+        engines = {}
+        for name, m in (("plain", None), ("nccl", mesh)):
+            model = mods["create_depth_model"]("mc", checkpoint="",
+                                               device=mesh.device)
+            model.net.load_state_dict(init_sd)
+            engines[name] = training.TrainingEngine(
+                model, training.create_optimizer("Adam", TRAIN_LR),
+                mods["LossWeights"](lambda_view_baseline=0.1,
+                                    lambda_reprojection=1.0), mesh=m)
+        data = engines["plain"].put_data(workload)
+        del workload
+        n_pairs = len(data["pair_ids"])
+        batches = list(islice(training.PairBatchIterator(
+            n_pairs, TRAIN_BATCH, seed=1).epoch(0),
+            1 + WARMUP_STEPS + MESH_TIMED_STEPS))
+        first = {n: float(e.train_step(data, *batches[0])["loss"])
+                 for n, e in engines.items()}
+        grads = {n: grads_of(e) for n, e in engines.items()}
+        for idx, valid in batches[1:1 + WARMUP_STEPS]:
+            for e in engines.values():
+                e.train_step(data, idx, valid)
+        times = {n: [] for n in engines}
+        for idx, valid in batches[1 + WARMUP_STEPS:]:
+            for n, e in engines.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                e.train_step(data, idx, valid)
+                end.record()
+                times[n].append((start, end))
+        torch.cuda.synchronize()
+        ms = {n: float(np.median([a.elapsed_time(b) for a, b in t]))
+              for n, t in times.items()}
+        # where the NCCL step's extra time goes: device time and idle share
+        # of each engine over PROFILED_STEPS more steps
+        profiles = {}
+        for n, e in engines.items():
+            prof = profile_train(torch, e, data, batches, mods["s2d_conv"])
+            profiles[n] = {k: prof[k] for k in (
+                "device_ms_per_step", "device_idle_share",
+                "ranges_ms_per_step")}
+            profiles[n]["top_kernels_ms_per_step"] = \
+                prof["top_kernels_ms_per_step"][:12]
+        nccl = {
+            "phase": "mesh_nccl", "ranks": mesh.size,
+            "backend": mesh.backend, "device": str(mesh.device),
+            "loss_rel": abs(first["nccl"] - first["plain"])
+            / abs(first["plain"]),
+            "grads_rel_l2": rel_l2(grads["nccl"], grads["plain"]),
+            "tol_loss": TOL_STEP_LOSS, "tol_grads": TOL_STEP_GRADS,
+            "timed_steps": MESH_TIMED_STEPS, "precision": "f32",
+            "median_ms_per_step": ms,
+            "nccl_extra_ms": ms["nccl"] - ms["plain"], "profiles": profiles,
+            "seconds": time.perf_counter() - t1, "nvidia_smi": smi}
+    finally:
+        dist.destroy_process_group()
+    emit(nccl)
+    require(mesh.backend == "nccl" and str(mesh.device) == "cuda:0",
+            f"make_mesh's defaults gave {mesh.backend} on {mesh.device}")
+    require(nccl["loss_rel"] <= TOL_STEP_LOSS
+            and nccl["grads_rel_l2"] <= TOL_STEP_GRADS,
+            f"NCCL mesh against no mesh {nccl}")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    return {dt: Counter(sum((Counter(g[dt]["routes"]) for g in got),
+                            Counter())) for dt in ("f32", "bf16")}
+
+
 def main() -> int:
     try:
         import torch
@@ -2883,9 +3238,14 @@ def main() -> int:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
     del context["data"]
 
+    # -- 14. the data mesh: two gloo ranks on the card, one NCCL rank -----
+    torch.cuda.empty_cache()
+    mesh_routes = mesh_path(torch, smi, context["init_sd"], per_forward)
+
     # the launches by route of each path that runs the kernel. mc's conv
-    # entries: one train epoch of phase 9 (179 steps), by precision, and
-    # the CLI's run of phase 11 (f32), with the times of mc's classes per
+    # entries: one train epoch of phase 9 (179 steps), by precision, the
+    # CLI's run of phase 11 (f32) and phase 14's mesh ranks' train steps
+    # (both ranks, by precision), with the times of mc's classes per
     # batch-8 forward (phase 3) or per train step (phase 7). Each
     # backbone's entries (same_conv_<name>...): its timed train steps (by
     # precision) and CLI run (f32) of phases 12-13, with the times of its
@@ -2896,7 +3256,8 @@ def main() -> int:
     vjp_tpu = "consistent_depth_tpu/models/layers.py:321"
     def mc_runs(dt, key):
         return {"epoch": epochs[dt]["train_epoch"]["route_counts"][key],
-                "cli": cli["route_counts"][key] if dt == "f32" else 0}
+                "cli": cli["route_counts"][key] if dt == "f32" else 0,
+                "mesh": mesh_routes[dt][key]}
 
     def backbone_runs(runs):
         return lambda dt, key: {

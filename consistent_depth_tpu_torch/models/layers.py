@@ -23,6 +23,10 @@ family use.
 - :func:`init_parameters`: flax's ``lecun_normal`` initialisation (a
   normal truncated at two standard deviations, scaled by the fan-in) from an
   explicit generator.
+- :class:`GlobalBatchNorm2d` and :func:`convert_global_batch_norm`: batch
+  norm whose train-mode statistics are those of the global batch of a data
+  mesh (``..parallel.mesh``), as the JAX package's one program over the
+  mesh computes them (``fused_batch_norm_pure``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import s2d_conv
+from ..parallel.mesh import Mesh, all_reduce_sum
 
 # flax's truncated_normal divides by the std of a unit normal truncated
 # to [-2, 2] so that the kept samples have the requested variance
@@ -116,3 +121,71 @@ def init_parameters(net: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
+
+
+class GlobalBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same parameters, buffers and state_dict keys)
+    whose train-mode statistics are taken over the global batch of
+    ``mesh``: one ``all_reduce_sum`` of ``[sum x, sum x^2, n]`` per call,
+    in f32 whatever the input dtype, then mean = E[x] and var =
+    max(E[x^2] - E[x]^2, 0), the JAX package's formula
+    (``models/layers.py::fused_batch_norm_pure``). The running variance is
+    unbiased by n / (n - 1) with the global n. The normalisation computes
+    in f32 and rounds once to the input dtype, as torch's batch norm does
+    for a bf16 input. In eval mode it is ``nn.BatchNorm2d``'s, on the
+    running stats, with no collective."""
+
+    def __init__(self, num_features: int, mesh: Mesh, **kwargs):
+        super().__init__(num_features, **kwargs)
+        if self.momentum is None or not self.track_running_stats:
+            raise ValueError("GlobalBatchNorm2d keeps running stats with a "
+                             "fixed momentum")
+        self.mesh = mesh
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        C = self.num_features
+        x32 = x.float()
+        n_local = x32.numel() // C
+        stats = all_reduce_sum(self.mesh, torch.cat([
+            x32.sum((0, 2, 3)), x32.square().sum((0, 2, 3)),
+            x32.new_full((1,), float(n_local))]))
+        n = stats[2 * C]
+        mean = stats[:C] / n
+        var = torch.clamp(stats[C:2 * C] / n - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean.detach())
+            self.running_var.mul_(1 - m).add_(
+                m * var.detach() * (n / torch.clamp(n - 1, min=1)))
+            self.num_batches_tracked.add_(1)
+        y = ((x32 - mean[None, :, None, None])
+             * torch.rsqrt(var + self.eps)[None, :, None, None])
+        if self.affine:
+            y = (y * self.weight[None, :, None, None]
+                 + self.bias[None, :, None, None])
+        return y.to(x.dtype)
+
+
+def convert_global_batch_norm(net: nn.Module, mesh: Mesh) -> nn.Module:
+    """Swap every ``nn.BatchNorm2d`` of ``net``, in place, for a
+    :class:`GlobalBatchNorm2d` over ``mesh`` holding the same parameter and
+    buffer tensors (the optimizer and the engine's parameter map stay
+    valid); returns ``net``."""
+    for name, child in net.named_children():
+        if type(child) is nn.BatchNorm2d:
+            bn = GlobalBatchNorm2d(
+                child.num_features, mesh, eps=child.eps,
+                momentum=child.momentum, affine=child.affine,
+                device="meta")
+            if child.affine:
+                bn.weight, bn.bias = child.weight, child.bias
+            bn.running_mean = child.running_mean
+            bn.running_var = child.running_var
+            bn.num_batches_tracked = child.num_batches_tracked
+            bn.train(child.training)
+            setattr(net, name, bn)
+        else:
+            convert_global_batch_norm(child, mesh)
+    return net

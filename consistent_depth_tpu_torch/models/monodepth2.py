@@ -129,8 +129,11 @@ class Monodepth2Model(DepthModel):
     def _read_checkpoint(self, path: str) -> Dict[str, torch.Tensor]:
         """The released checkpoint is a directory: ``encoder.pth``, which
         also carries the feed size (and ``use_stereo``, dropped), and
-        ``depth.pth`` (monodepth2_model.py:26-50). A single ``.pth``, as
-        the fine-tune writes, loads as any other."""
+        ``depth.pth`` (monodepth2_model.py:26-50). The released encoder is
+        a whole torchvision ResNet-18, whose classifier ``encoder.fc`` the
+        depth network does not have: its two keys are dropped, every other
+        key loads strictly. A single ``.pth``, as the fine-tune writes,
+        loads as any other."""
         if not os.path.isdir(path):
             return super()._read_checkpoint(path)
         from .torch_import import load_checkpoint
@@ -139,6 +142,8 @@ class Monodepth2Model(DepthModel):
         self.feed_height = int(enc.pop("height", self.feed_height))
         self.feed_width = int(enc.pop("width", self.feed_width))
         enc.pop("use_stereo", None)
+        enc.pop("encoder.fc.weight", None)
+        enc.pop("encoder.fc.bias", None)
         # the two state_dicts carry their "encoder." / "decoder." prefixes
         return {**enc, **load_checkpoint(os.path.join(path, "depth.pth"))}
 

@@ -12,6 +12,15 @@ Per frame pair, in both directions:
 
 As in the JAX package, a padded fixed-size batch carries a ``valid`` mask,
 and the scalar divides by the valid count.
+
+With a data ``mesh`` (``..parallel.mesh``) each rank holds a block of the
+global batch, and the quantities the JAX package's one program takes over
+the global batch are reduced over the ranks: the focal mean of the
+disparity loss and the valid count. Each rank's scalar is then its own sum
+over the global count, so that the ranks' scalars (and their gradients) add
+up to the one-program scalar, and the parameter loss enters each rank with
+weight 1/N, once in the sum. The returned loss carries the global value
+(all-reduced) and the gradient of the rank's own share.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import Mesh, all_reduce_sum
 from . import geometry
 from .resample import sample_uv
 
@@ -46,6 +56,7 @@ def geometry_consistency_loss(
         points_cam: torch.Tensor, intrinsics: torch.Tensor,
         extrinsics: torch.Tensor, pixels: torch.Tensor, flows: torch.Tensor,
         masks: torch.Tensor, weights: LossWeights,
+        mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Pairwise geometric consistency.
 
@@ -56,6 +67,7 @@ def geometry_consistency_loss(
         pixels:     (H, W, 2)
         flows:      (B, 2, H, W, 2) flow from frame k to frame 1-k, pixels
         masks:      (B, 2, H, W) valid-correspondence masks in {0, 1}
+        mesh:       with a mesh, the focal mean is the global batch's
 
     Returns:
         (mean loss over the batch, {"reprojection": (B,), "disparity": (B,)})
@@ -78,7 +90,13 @@ def geometry_consistency_loss(
         if weights.lambda_view_baseline > 0:
             # global scalar mean of (fx, fy) over the batch, as in the
             # reference (consistency_loss.py:178)
-            f = geometry.focal_length(intrinsics[:, k]).mean()
+            f = geometry.focal_length(intrinsics[:, k])
+            if mesh is None:
+                f = f.mean()
+            else:
+                f_sum = all_reduce_sum(mesh, torch.stack(
+                    [f.sum(), f.new_tensor(float(f.numel()))]))
+                f = f_sum[0] / f_sum[1]
             warped_tgt_z = sample_uv(
                 points_cam[:, j][..., -1:], matched_pixels_tgt)[..., 0]
             disp_diff = 1.0 / points_cam_tgt[..., -1] - 1.0 / warped_tgt_z
@@ -101,17 +119,29 @@ def consistency_loss(
         depths: torch.Tensor, intrinsics: torch.Tensor,
         extrinsics: torch.Tensor, flows: torch.Tensor, masks: torch.Tensor,
         weights: LossWeights, valid: Optional[torch.Tensor] = None,
+        mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full consistency loss from predicted depths (B, 2, H, W). With
     ``valid`` (B,) in {0, 1}, padded samples contribute 0 and the scalar
-    divides by the valid count."""
+    divides by the valid count. With a ``mesh`` the count and the focal
+    mean are the global batch's, and the scalar is this rank's sum over the
+    global count (its share of the global scalar)."""
     H, W = depths.shape[-2:]
     pixels = geometry.pixel_grid((H, W), dtype=depths.dtype,
                                  device=depths.device)
     points_cam = geometry.pixels_to_points(intrinsics, depths, pixels)
     scalar, batch_losses = geometry_consistency_loss(
-        points_cam, intrinsics, extrinsics, pixels, flows, masks, weights)
-    if valid is not None:
+        points_cam, intrinsics, extrinsics, pixels, flows, masks, weights,
+        mesh=mesh)
+    if mesh is not None:
+        v = (valid.to(depths.dtype) if valid is not None else
+             torch.ones((depths.shape[0],), dtype=depths.dtype,
+                        device=depths.device))
+        batch_losses = {k: x * v for k, x in batch_losses.items()}
+        total = sum(batch_losses.values())
+        count = all_reduce_sum(mesh, v.sum())
+        scalar = total.sum() / torch.clamp(count, min=1.0)
+    elif valid is not None:
         v = valid.to(depths.dtype)
         batch_losses = {k: x * v for k, x in batch_losses.items()}
         total = sum(batch_losses.values())
@@ -139,9 +169,13 @@ def joint_loss(
         params: Optional[Mapping[str, torch.Tensor]] = None,
         params_init: Optional[Mapping[str, torch.Tensor]] = None,
         valid: Optional[torch.Tensor] = None,
+        mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Sum of the parameter and consistency losses (reference:
-    loss/joint_loss.py)."""
+    loss/joint_loss.py). With a ``mesh`` the returned scalar's value is the
+    global loss, the same on every rank, and its gradient is this rank's
+    share: the consistency sum over the global count plus 1/N of the
+    parameter loss."""
     loss = torch.zeros((), dtype=depths.dtype, device=depths.device)
     batch_losses: Dict[str, torch.Tensor] = {}
     if weights.lambda_parameter > 0:
@@ -150,12 +184,16 @@ def joint_loss(
                              "params_init")
         p_loss, p_batch = parameter_loss(
             params, params_init, weights.lambda_parameter)
-        loss = loss + p_loss
+        loss = loss + (p_loss if mesh is None else p_loss / mesh.size)
         batch_losses.update(p_batch)
     if weights.lambda_view_baseline > 0 or weights.lambda_reprojection > 0:
         c_loss, c_batch = consistency_loss(
             depths, intrinsics, extrinsics, flows, masks, weights,
-            valid=valid)
+            valid=valid, mesh=mesh)
         loss = loss + c_loss
         batch_losses.update(c_batch)
+    if mesh is not None:
+        # the global value, exactly, carrying this rank's gradient
+        total = all_reduce_sum(mesh, loss.detach())
+        loss = total + (loss - loss.detach())
     return loss, batch_losses

@@ -19,6 +19,12 @@ Output tree (identical to the reference):
 The device stages (initial depth, calibration, flow, masks and renders,
 fine-tuning, final depth) run on the processor's ``device``: the card
 unless the caller asks for the CPU.
+
+Under a data mesh (``torchrun --nproc_per_node N -m
+consistent_depth_tpu_torch ...``, or a mesh passed in), every rank builds
+the fine-tuner on its own card and runs the fine-tune; every other stage
+runs on rank 0 while the others wait at a barrier. Those stages are cached
+on the filesystem, so the ranks that waited read what rank 0 wrote.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import Mesh, launched_mesh
 from ..training.fine_tuning import DepthFineTuner
 from ..utils.frame_range import FrameRange, OptionalSet
 from ..utils.helpers import print_banner, print_title
@@ -48,6 +55,7 @@ class PipelineState:
     params: object
     writer: object = None
     device: torch.device = torch.device("cuda")
+    mesh: Optional[Mesh] = None
     path: str = ""
     out_dir: str = ""
     video: Optional[Video] = None
@@ -69,15 +77,27 @@ class Stage:
 
     ``done`` (optional) probes whether the stage's artifacts already
     exist; stages without a probe implement their own internal caching
-    (every reference stage re-checks its outputs on entry).
+    (every reference stage re-checks its outputs on entry). Under a mesh a
+    stage runs on rank 0 alone, the others waiting at a barrier, unless it
+    runs ``every_rank``.
     """
 
     name: str
     run: Callable[[PipelineState], None]
     done: Optional[Callable[[PipelineState], bool]] = None
     enabled: Callable[[PipelineState], bool] = lambda s: True
+    every_rank: bool = False
 
     def execute(self, state: PipelineState) -> None:
+        mesh = state.mesh
+        if mesh is None or self.every_rank:
+            self._execute(state)
+            return
+        if mesh.rank == 0:
+            self._execute(state)
+        mesh.barrier()
+
+    def _execute(self, state: PipelineState) -> None:
         if not self.enabled(state):
             return
         print_banner(self.name)
@@ -112,10 +132,14 @@ def _downscale(column: str, size_of, fmt: str, align: int = 16):
 def _init_models(s: PipelineState) -> None:
     """Instantiate the fine-tuner (loads the pretrained backbone) and the
     frame range; cheap, never cached."""
+    if s.video.frame_count is None:
+        # a rank that waited while rank 0 extracted reads its frames.txt
+        s.video.check_extracted_pts()
     s.frame_range = FrameRange(
         frame_range=s.params.frame_range.set,
         num_frames=s.video.frame_count)
-    s.tuner = DepthFineTuner(s.out_dir, s.frames, s.params, device=s.device)
+    s.tuner = DepthFineTuner(s.out_dir, s.frames, s.params, device=s.device,
+                             mesh=s.mesh)
     s.initial_depth_dir = pjoin(s.path, f"depth_{s.params.model_type}")
 
 
@@ -185,16 +209,22 @@ def _export_videos(s: PipelineState) -> None:
 class DatasetProcessor:
     """Runs the stage graph over one video dataset on ``device``, the card
     unless the caller asks for the CPU; without a CUDA device the default
-    raises before anything is written."""
+    raises before anything is written. ``mesh``: the data mesh, by default
+    one over the launcher's ranks when it started more than one; under a
+    mesh the device is the mesh's."""
 
-    def __init__(self, writer=None, device="cuda"):
+    def __init__(self, writer=None, device="cuda",
+                 mesh: Optional[Mesh] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "DatasetProcessor runs on the card and no CUDA device is "
                 "available; pass device='cpu' to run the pipeline on the CPU")
+        if mesh is None:
+            mesh = launched_mesh(device)
         self.writer = writer
-        self.device = device
+        self.mesh = mesh
+        self.device = device if mesh is None else mesh.device
 
     # -- graph definitions -------------------------------------------------
     @staticmethod
@@ -225,7 +255,7 @@ class DatasetProcessor:
                   _downscale("color_flow", lambda s: Flow.max_size(), "png",
                              align=64),
                   done=downscaled("color_flow", "png")),
-            Stage("Loading depth model", _init_models),
+            Stage("Loading depth model", _init_models, every_rank=True),
             Stage("Compute initial depth", _initial_depth,
                   done=lambda s: s.video.check_frames(
                       pjoin(s.initial_depth_dir, "depth"), "raw")),
@@ -239,7 +269,7 @@ class DatasetProcessor:
                           "flow_list_%.2f.json" % s.params.overlap_ratio))
                       and os.path.isfile(pjoin(s.path, "flow_list.json")))),
             Stage("Visualize flow", _visualize_flow),
-            Stage("Fine-tuning", _fine_tune),
+            Stage("Fine-tuning", _fine_tune, every_rank=True),
             Stage("Compute final depth", _final_depth,
                   done=lambda s: s.video.check_frames(
                       pjoin(s.tuner.out_dir, "depth"), "raw", s.frames)),
@@ -269,7 +299,7 @@ class DatasetProcessor:
         os.makedirs(out_dir, exist_ok=True)
         return PipelineState(
             params=params, writer=self.writer, device=self.device,
-            path=path, out_dir=out_dir,
+            mesh=self.mesh, path=path, out_dir=out_dir,
             video=Video(path, params.video_file),
             flow=Flow(path, out_dir, device=self.device),
         )

@@ -13,6 +13,11 @@
 - Under ``precision="bf16"`` the network and images are bf16 (the kernels
   accumulate in f32) and the depth travels as f16; under ``"f32"`` it is
   f32 throughout, with TF32 turned off for cuDNN and matmuls.
+- With ``ServeConfig.mesh`` (``..parallel.mesh``), as the JAX server's
+  sharded programs: every rank receives the same request stream, the
+  weights are rank 0's, each rank computes its block of every micro-batch
+  (the batch size must be a multiple of the mesh size) and the depths are
+  gathered, so every rank yields the same results in the same order.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import numpy as np
 import torch
 
 from ..models.registry import create_depth_model
+from ..parallel.mesh import (
+    Mesh, all_gather_batch, put_replicated, shard_batch)
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -46,6 +53,8 @@ class ServeConfig:
     # before the oldest result is fetched. 1 = double buffering.
     max_in_flight: int = 1
     device: str = "cuda"
+    # the data mesh; under it the device is the mesh's
+    mesh: Optional[Mesh] = None
     # extra kwargs forwarded to the backbone constructor
     model_kwargs: Dict[str, Any] = field(default_factory=dict)
 
@@ -80,7 +89,13 @@ class DepthServer:
         if config.precision not in _DTYPES:
             raise ValueError(f"precision must be one of {sorted(_DTYPES)}")
         self.config = config
-        self.device = torch.device(config.device)
+        self.mesh = config.mesh
+        if self.mesh is not None and config.batch_size % self.mesh.size:
+            raise ValueError(
+                f"batch_size {config.batch_size} does not split over the "
+                f"mesh's {self.mesh.size} ranks")
+        self.device = torch.device(
+            config.device if self.mesh is None else self.mesh.device)
         dtype = _DTYPES[config.precision]
         if config.precision == "f32" and self.device.type == "cuda":
             # f32 means f32: no TF32 in cuDNN convs or matmuls
@@ -92,6 +107,8 @@ class DepthServer:
                 device=self.device, dtype=dtype, **config.model_kwargs)
         else:
             model.to(self.device, dtype)
+        if self.mesh is not None:
+            put_replicated(self.mesh, model.net.state_dict().values())
         self.model = model
         self.align = model.align
         # the host-bound depth travels as f16 under bf16 (same convention
@@ -122,9 +139,13 @@ class DepthServer:
                 batch[i, 0, h:] = batch[i, 0, h - 1:h]
             if w < bw:
                 batch[i, 0, :, w:] = batch[i, 0, :, w - 1:w]
+        rows = host_in if self.mesh is None else shard_batch(self.mesh,
+                                                             host_in)
         with torch.inference_mode():
-            images = host_in.to(self.device, non_blocking=True)
+            images = rows.to(self.device, non_blocking=True)
             depth = self.model.apply(images).to(self._out_dtype)
+            if self.mesh is not None:
+                depth = all_gather_batch(self.mesh, depth)
             if self._pin:
                 host_out = torch.empty(depth.shape, dtype=depth.dtype,
                                        pin_memory=True)

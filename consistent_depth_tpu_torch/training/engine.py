@@ -26,6 +26,18 @@ host. Where the JAX engine compiles an epoch into one ``lax.scan``, the
 port queues its steps on the card's stream: the index arrays go up once
 per epoch and every metric stays on the device, so an epoch or an eval
 pass issues no sync.
+
+With a data ``mesh`` (``..parallel.mesh``), as the JAX engine's programs
+over the mesh: every rank holds the replicated state (broadcast from rank 0
+at construction) and the resident dataset, and computes its block of each
+(S, B) index and valid array; the batch norms take the global batch's
+statistics (``models.layers.GlobalBatchNorm2d``) and the loss its global
+focal mean and valid count (``ops.losses``). After the backward one sum
+all-reduce of all gradients, as one flat buffer, gives every rank the
+global gradient, so that the NaN-skip (on the reduced gradients and the
+global loss) and the update are the same on every rank. The per-pair
+losses, the pair ids and the depths come back in the global (S, B) layout.
+``infer`` runs no collective, as the JAX engine's unsharded ``infer``.
 """
 
 from __future__ import annotations
@@ -34,10 +46,17 @@ from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.base import DepthModel
+from ..models.layers import convert_global_batch_norm
 from ..ops.losses import LossWeights, joint_loss
+from ..parallel.mesh import (
+    Mesh, all_gather_batch, put_replicated, shard_batch)
 from .optimizer import OptimizerFactory
+
+# the metrics that hold one value per pair of the batch
+PER_PAIR = ("reprojection", "disparity")
 
 
 def gather_batch(data: Mapping[str, torch.Tensor],
@@ -90,7 +109,8 @@ class TrainingEngine:
     def __init__(self, model: DepthModel, optimizer: OptimizerFactory,
                  weights: LossWeights,
                  params_init: Optional[Mapping[str, torch.Tensor]] = None,
-                 precision: str = "f32", eval_dedup: Optional[bool] = None):
+                 precision: str = "f32", eval_dedup: Optional[bool] = None,
+                 mesh: Optional[Mesh] = None):
         if precision not in ("f32", "bf16"):
             raise ValueError(f"precision must be 'f32' or 'bf16', not "
                              f"{precision!r}")
@@ -104,6 +124,26 @@ class TrainingEngine:
         model.compute_dtype = (torch.bfloat16 if precision == "bf16"
                                else torch.float32)
         self.model = model
+        self.mesh = mesh
+        if mesh is not None:
+            device = model.device
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            if device != mesh.device:
+                raise ValueError(f"the model is on {model.device} and this "
+                                 f"rank's mesh device is {mesh.device}")
+            put_replicated(mesh, model.net.state_dict().values())
+            if params_init is not None:
+                put_replicated(mesh, params_init.values())
+            convert_global_batch_norm(model.net, mesh)
+            # the gradients live in one flat buffer, each with its
+            # parameter's strides, so that one all-reduce sums them all
+            numels = [p.numel() for p in self.params.values()]
+            self._grad_flat = torch.zeros(sum(numels), device=model.device)
+            offsets = np.cumsum([0] + numels[:-1]).tolist()
+            self._grad_views = [
+                self._grad_flat.as_strided(p.shape, p.stride(), off)
+                for p, off in zip(self.params.values(), offsets)]
         self.optimizer = optimizer(self.params.values())
         if not self.optimizer.defaults.get("fused"):
             raise ValueError("the masked update needs a fused optimizer "
@@ -157,6 +197,27 @@ class TrainingEngine:
         return (self._upload(idx, torch.long),
                 self._upload(valid, torch.float32))
 
+    def _shard(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """This rank's block of the batch axis ``axis`` of a device array;
+        the whole array without a mesh."""
+        if self.mesh is None:
+            return x
+        return shard_batch(self.mesh, x, axis)
+
+    def _gather(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """The global batch of a per-rank block along ``axis``; ``x``
+        itself without a mesh."""
+        if self.mesh is None:
+            return x
+        return all_gather_batch(self.mesh, x, axis)
+
+    def _gather_pairs(self, metrics: Dict[str, torch.Tensor],
+                      axis: int) -> Dict[str, torch.Tensor]:
+        for k in PER_PAIR:
+            if k in metrics:
+                metrics[k] = self._gather(metrics[k], axis)
+        return metrics
+
     def _loss(self, batch: Mapping[str, torch.Tensor], valid: torch.Tensor,
               train: bool):
         """(loss, per-pair losses, depth) of one batch; ``train`` picks
@@ -166,7 +227,7 @@ class TrainingEngine:
         loss, batch_losses = joint_loss(
             depth, batch["intrinsics"], batch["extrinsics"], batch["flows"],
             batch["masks"], self.weights, params=self.params,
-            params_init=self.params_init, valid=valid)
+            params_init=self.params_init, valid=valid, mesh=self.mesh)
         return loss, batch_losses, depth
 
     # -- training ---------------------------------------------------------
@@ -175,13 +236,22 @@ class TrainingEngine:
         """One optimizer step on device index tensors; returns its metrics
         and the batch's depth (B, 2, H, W), all on the device."""
         batch = gather_batch(data, idx)
-        self.optimizer.zero_grad(set_to_none=True)
+        if self.mesh is None:
+            self.optimizer.zero_grad(set_to_none=True)
+        else:
+            # the backward accumulates into the views of the flat buffer
+            self._grad_flat.zero_()
+            for p, g in zip(self.params.values(), self._grad_views):
+                p.grad = g
         loss, batch_losses, depth = self._loss(batch, valid, train=True)
         loss.backward()
+        if self.mesh is not None:
+            dist.all_reduce(self._grad_flat, group=self.mesh.group)
         # a parameter outside the forward (MiDaS's refinenet4.resConfUnit1)
         # gets an exact zero gradient, as JAX gives it: the optimizers then
         # treat it as optax does (Adam leaves it, AdamW still decays it)
-        # where a None gradient would make them skip it
+        # where a None gradient would make them skip it (under a mesh the
+        # flat buffer holds its zeros)
         for p in self.params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -211,7 +281,10 @@ class TrainingEngine:
         Returns device tensors: ``loss``, ``skipped_nan``, and the per-pair
         ``reprojection`` and ``disparity`` losses."""
         self._policy()
-        return self._step(data, *self._indices(idx, valid))[0]
+        idx, valid = self._indices(idx, valid)
+        metrics, _ = self._step(data, self._shard(idx, 0),
+                                self._shard(valid, 0))
+        return self._gather_pairs(metrics, 0)
 
     def train_epoch(self, data: Mapping[str, torch.Tensor], idx, valid,
                     capture_slot=None) -> Dict[str, torch.Tensor]:
@@ -239,14 +312,15 @@ class TrainingEngine:
         H, W = data["frames"].shape[1:3]
         cap = torch.zeros((self.CAPTURE_SLOTS, B, 2, H, W),
                           dtype=self._dump_dtype, device=self.model.device)
+        idx_r, valid_r = self._shard(idx_t, 1), self._shard(valid_t, 1)
         per_step = []
         for s in range(S):
-            metrics, depth = self._step(data, idx_t[s], valid_t[s])
+            metrics, depth = self._step(data, idx_r[s], valid_r[s])
             slot = -1 if capture_slot is None else int(capture_slot[s])
             if 0 <= slot < self.CAPTURE_SLOTS:
-                cap[slot].copy_(depth)
+                cap[slot].copy_(self._gather(depth.to(cap.dtype)))
             per_step.append(metrics)
-        out = _stack(per_step)
+        out = self._gather_pairs(_stack(per_step), 1)
         out["captured_depth"] = cap
         return out
 
@@ -259,7 +333,10 @@ class TrainingEngine:
         reference depth_fine_tuning.py:246-257, 312-341)."""
         self._policy()
         idx, valid = self._indices(idx, valid)
-        return self._eval_batch(data, idx, valid)
+        m = self._eval_batch(data, self._shard(idx, 0), self._shard(valid, 0))
+        m["depth"] = self._gather(m["depth"])
+        m["pair_ids"] = data["pair_ids"][idx]
+        return self._gather_pairs(m, 0)
 
     def _eval_batch(self, data, idx, valid):
         batch = gather_batch(data, idx)
@@ -297,7 +374,9 @@ class TrainingEngine:
         copy writes them all, so each slot's first valid occurrence in the
         batch is found first (a (2B, 2B) comparison of the batch's slots):
         a frame that appears twice in one batch is written once, from its
-        first side. Every other row goes to a dump row past the frames."""
+        first side. Every other row goes to a dump row past the frames.
+        Under a mesh each batch's depths are gathered first, so the rule
+        sees the global batch order."""
         n_frames, H, W = data["frames"].shape[:3]
         dev = self.model.device
         buf = torch.zeros((n_frames + 1, H, W), dtype=self._dump_dtype,
@@ -306,10 +385,13 @@ class TrainingEngine:
         n = 2 * idx.shape[1]
         order = torch.arange(n, device=dev)
         earlier = order[None, :] < order[:, None]        # [i, j]: j before i
+        idx_r, valid_r = self._shard(idx, 1), self._shard(valid, 1)
         per_step = []
         for s in range(idx.shape[0]):
-            m = self._eval_batch(data, idx[s], valid[s])
-            flat = m.pop("depth").to(buf.dtype).reshape(n, H, W)
+            m = self._eval_batch(data, idx_r[s], valid_r[s])
+            m["pair_ids"] = data["pair_ids"][idx[s]]
+            flat = self._gather(m.pop("depth").to(buf.dtype)).reshape(
+                n, H, W)
             slots = data["pair_slots"][idx[s]].reshape(n).long()
             ok = (valid[s] > 0)[:, None].expand(-1, 2).reshape(n)
             repeated = ((slots[:, None] == slots[None, :]) & earlier
@@ -318,7 +400,7 @@ class TrainingEngine:
             buf.index_copy_(0, torch.where(take, slots, n_frames), flat)
             seen.index_fill_(0, torch.where(ok, slots, n_frames), True)
             per_step.append(m)
-        out = _stack(per_step)
+        out = self._gather_pairs(_stack(per_step), 1)
         out["depth_frames"] = buf[:n_frames]
         out["frames_seen"] = seen[:n_frames]
         return out
@@ -341,7 +423,13 @@ class TrainingEngine:
         (a) ``depth_frames`` rows of frames in no valid pair carry real
         depths here (the paired pass leaves them zero); (b) the BN running
         stats are updated from every resident frame, frames in no pair and
-        the clamped padding duplicates included, not only pair frames."""
+        the clamped padding duplicates included, not only pair frames.
+
+        Under a mesh the frame chunks and the pair batches are sharded over
+        their batch axis, as the JAX pass's ``P(None, "data", None)``; each
+        rank writes its frames' rows, and one sum all-reduce of the buffer
+        (each frame's row written by one rank, zeros elsewhere) gives every
+        rank all of them."""
         n_frames, H, W = data["frames"].shape[:3]
         dev = self.model.device
         S, B = idx.shape
@@ -349,7 +437,8 @@ class TrainingEngine:
         fsteps = max(1, -(-n_frames // per))
         fslots = np.full((fsteps * per,), n_frames, np.int64)
         fslots[:n_frames] = np.arange(n_frames)
-        frame_idx = self._upload(fslots.reshape(fsteps, B, 2), torch.long)
+        frame_idx = self._shard(
+            self._upload(fslots.reshape(fsteps, B, 2), torch.long), 1)
 
         # per-frame scales recovered from the per-pair (P, 2) array: scales
         # are a per-frame quantity, the pair array only gathers them; frames
@@ -369,20 +458,24 @@ class TrainingEngine:
             scales = frame_scales[slots] if frame_scales is not None else None
             depth = self.model.apply(images, scales=scales, train=True)
             buf.index_copy_(0, slots.reshape(-1),
-                            depth.float().reshape(per, H, W))
+                            depth.float().reshape(slots.numel(), H, W))
+        if self.mesh is not None:
+            dist.all_reduce(buf, group=self.mesh.group)
 
+        idx_r, valid_r = self._shard(idx, 1), self._shard(valid, 1)
         per_step = []
         for s in range(S):
-            depth = buf[data["pair_slots"][idx[s]].long()]     # (B, 2, H, W)
+            i = idx_r[s]
+            depth = buf[data["pair_slots"][i].long()]          # (B, 2, H, W)
             loss, batch_losses = joint_loss(
-                depth, data["intrinsics"][idx[s]],
-                data["extrinsics"][idx[s]], data["flows"][idx[s]],
-                data["masks"][idx[s]], self.weights, params=self.params,
-                params_init=self.params_init, valid=valid[s])
+                depth, data["intrinsics"][i], data["extrinsics"][i],
+                data["flows"][i], data["masks"][i], self.weights,
+                params=self.params, params_init=self.params_init,
+                valid=valid_r[s], mesh=self.mesh)
             per_step.append({"loss": loss,
                              "pair_ids": data["pair_ids"][idx[s]],
                              **batch_losses})
-        out = _stack(per_step)
+        out = self._gather_pairs(_stack(per_step), 1)
         # frames_seen: frames of any VALID pair, as the paired pass
         slots = data["pair_slots"][idx.reshape(-1)].reshape(-1).long()
         ok = (valid.reshape(-1) > 0)[:, None].expand(-1, 2).reshape(-1)

@@ -17,8 +17,17 @@ plus, with ``--resume``, ``checkpoints/full_{epoch:04d}/state.pt``
 orchestration. Everything that reads a device value (losses, skipped
 steps, captured depths, eval buffers, checkpoints) runs in a deferred
 ``process()`` after the next epoch has been queued, so the host's writes
-overlap the card's work, as in the JAX driver. There is one device: the
-``use_mesh`` parameter is accepted and has no effect.
+overlap the card's work, as in the JAX driver.
+
+Data parallelism, as the JAX driver's: under a launcher that started more
+than one rank (``torchrun --nproc_per_node N``) and with ``use_mesh`` (the
+default), or with a mesh passed in, the engine runs over the mesh
+(``..parallel.mesh``) and the batch size is multiplied by N after the tag
+is made, so that the tag names the per-rank batch. Every rank runs the
+same passes and collectives; rank 0 alone writes (checkpoints,
+``state.pt``, the eval JSON and images, events, ``save_depth``), and the
+others wait for it at a barrier before ``fine_tune`` returns. ``--resume``
+loads rank 0's ``full_{epoch}/state.pt`` on every rank.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from ..io import image_io
 from ..models import torch_import
 from ..models.registry import get_depth_model
 from ..ops.losses import LossWeights
+from ..parallel.mesh import Mesh, launched_mesh
 from ..utils import visualization
 from . import checkpoints as ckpt
 from . import optimizer as optimizer_registry
@@ -158,14 +168,24 @@ def _fetch(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 class DepthFineTuner:
     def __init__(self, range_dir: str, frames: List[int], params,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None):
         """``device`` is the card unless the caller asks for the CPU;
-        without a CUDA device the default raises."""
+        without a CUDA device the default raises. ``mesh``: the data mesh,
+        by default one over the launcher's ranks when it started more
+        than one (and ``params.use_mesh`` is not False); under a mesh the
+        device is the mesh's."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "DepthFineTuner runs on the card and no CUDA device is "
                 "available; pass device='cpu' to fine-tune on the CPU")
+        if mesh is None and getattr(params, "use_mesh", True):
+            mesh = launched_mesh(device)
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
+        # the rank that writes the artifacts
+        self.writes = mesh is None or mesh.rank == 0
         self.frames = frames
         self.params = params
         self.base_dir = params.path
@@ -180,6 +200,13 @@ class DepthFineTuner:
         checkpoint = getattr(params, "model_checkpoint", None)
         self.model = model_cls(checkpoint=checkpoint, device=device)
 
+        # the reference's GPU-count batch scaling
+        # (depth_fine_tuning.py:155-159), after the tag is made
+        if mesh is not None and mesh.size > 1:
+            print(f"Using {mesh.size} devices.")
+            self.params.batch_size *= mesh.size
+            print(f"Adjusting batch size to {self.params.batch_size}.")
+
         self.weights = LossWeights(
             lambda_view_baseline=params.lambda_view_baseline,
             lambda_reprojection=params.lambda_reprojection,
@@ -189,7 +216,7 @@ class DepthFineTuner:
             params.optimizer, params.learning_rate, betas=(0.9, 0.999))
         self.engine = TrainingEngine(
             self.model, tx, self.weights,
-            precision=getattr(params, "precision", "f32"))
+            precision=getattr(params, "precision", "f32"), mesh=mesh)
         self.vis_depth_scale: Optional[float] = None
         # host wall seconds of each epoch (as printed) and of each eval
         # pass (its queueing plus its processing)
@@ -201,7 +228,10 @@ class DepthFineTuner:
                    batch_size: int = 4):
         """Run eval-mode inference on every frame; write inverse depth
         .raw + global-range visualizations
-        (reference: depth_fine_tuning.py:164-199)."""
+        (reference: depth_fine_tuning.py:164-199). Under a mesh rank 0
+        alone runs it: ``infer`` runs no collective."""
+        if not self.writes:
+            return
         if dir is None:
             dir = self.out_dir  # noqa: A001
         if frames is None:
@@ -249,11 +279,13 @@ class DepthFineTuner:
         num_pairs = data.num_pairs
         B = self.params.batch_size
 
-        own_writer = writer is None
+        own_writer = writer is None and self.writes
         if own_writer:
             log_dir = self.params.log_dir or pjoin(self.out_dir, "tensorboard")
             os.makedirs(log_dir, exist_ok=True)
             writer = SummaryWriter(log_dir=log_dir)
+        if not self.writes:
+            writer = None
 
         eval_dir = pjoin(self.out_dir, "eval")
         os.makedirs(eval_dir, exist_ok=True)
@@ -268,6 +300,8 @@ class DepthFineTuner:
             t0 = time.perf_counter()
             metrics, idx = self.dispatch_eval(dev_data, data)
             queued = time.perf_counter() - t0
+            if not self.writes:
+                return lambda: None
 
             def process():
                 t1 = time.perf_counter()
@@ -311,8 +345,12 @@ class DepthFineTuner:
 
         it = PairBatchIterator(
             num_pairs, B, shuffle=True, seed=getattr(self.params, "seed", 0))
-        total_iters = start_epoch * it.steps_per_epoch() * B
-        profile_dir = getattr(self.params, "profile_dir", None)
+        # the count of pairs seen: each epoch's valid pairs, so that a
+        # resumed run names its evals and events as the uninterrupted one
+        # (steps x B would count the padding of a ragged last batch)
+        total_iters = start_epoch * num_pairs
+        profile_dir = (getattr(self.params, "profile_dir", None)
+                       if self.writes else None)
         # profiling wants a clean trace of one epoch: no overlap
         in_flight = 0 if profile_dir else 1
         prof = None
@@ -331,12 +369,11 @@ class DepthFineTuner:
             valid_mat = np.stack([s[1] for s in steps])
 
             # the steps that hit display_freq keep their training
-            # predictions in the epoch (no extra forward)
-            capture_slot = np.full(len(steps), -1, np.int32)
-            if writer is not None:
-                capture_slot = capture_slots(
-                    valid_mat, total_iters, self.params.display_freq,
-                    self.engine.CAPTURE_SLOTS)
+            # predictions in the epoch (no extra forward); every rank of a
+            # mesh captures the same steps, whose depths it gathers
+            capture_slot = capture_slots(
+                valid_mat, total_iters, self.params.display_freq,
+                self.engine.CAPTURE_SLOTS)
 
             metrics = self.engine.train_epoch(
                 dev_data, idx_mat, valid_mat, capture_slot)
@@ -357,7 +394,8 @@ class DepthFineTuner:
             # the deferred export runs
             ckpt_state = (
                 self.engine.state_dict()
-                if (epoch + 1) % self.params.save_epoch_freq == 0 else None)
+                if (epoch + 1) % self.params.save_epoch_freq == 0
+                and self.writes else None)
 
             def process(epoch=epoch, metrics=metrics, steps=steps,
                         capture_slot=capture_slot, iters_at=iters_at,
@@ -421,7 +459,8 @@ class DepthFineTuner:
                         ckpt_fut.result()
                         ckpt_job.shutdown()
 
-            pending.append(process)
+            if self.writes:
+                pending.append(process)
             run_pending(in_flight)
 
             if prof is not None and epoch == start_epoch:
@@ -434,6 +473,8 @@ class DepthFineTuner:
             dispatch_validate(self.params.num_epochs, total_iters)()
         if own_writer:
             writer.close()
+        if self.mesh is not None:
+            self.mesh.barrier()
         print("Finished Training")
 
     def _write_summary(self, writer, dev_data, idx, depth, n_iter):

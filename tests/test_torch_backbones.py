@@ -412,6 +412,46 @@ def test_monodepth2_pth_and_directory_cross_both_ways(jax_monodepth2_model,
                  jax_as_port_keys(jmodel.variables))
 
 
+def test_monodepth2_released_directory_with_fc_loads(tmp_path):
+    """monodepth2's released ``encoder.pth`` holds its whole torchvision
+    ResNet-18, the classifier ``encoder.fc`` (1000, 512) included, which
+    the depth network does not use: a directory that carries it loads the
+    same weights as one without it (every other key strictly)."""
+    sd = monodepth2.Monodepth2Model(checkpoint="", seed=0,
+                                    device="cpu").net.state_dict()
+    rng = np.random.default_rng(0)
+    fc = {"encoder.fc.weight": torch.from_numpy(
+              rng.standard_normal((1000, 512)).astype(np.float32)),
+          "encoder.fc.bias": torch.from_numpy(
+              rng.standard_normal(1000).astype(np.float32))}
+    loaded = []
+    for name, extra in (("plain", {}), ("released", fc)):
+        ckpt = tmp_path / name
+        ckpt.mkdir()
+        torch.save({**{k: v for k, v in sd.items()
+                       if k.startswith("encoder.")}, **extra,
+                    "height": 64, "width": 128, "use_stereo": False},
+                   str(ckpt / "encoder.pth"))
+        torch.save({k: v for k, v in sd.items() if k.startswith("decoder.")},
+                   str(ckpt / "depth.pth"))
+        loaded.append(monodepth2.Monodepth2Model(checkpoint=str(ckpt),
+                                                 device="cpu"))
+    plain, released = (m.net.state_dict() for m in loaded)
+    assert plain.keys() == released.keys() == sd.keys()
+    for k in sd:
+        assert torch.equal(released[k], plain[k]), k
+        assert torch.equal(released[k], sd[k]), k
+    # any other key the network lacks still fails the load
+    ckpt = tmp_path / "stray"
+    ckpt.mkdir()
+    torch.save({**{k: v for k, v in sd.items() if k.startswith("encoder.")},
+                "encoder.stray": torch.zeros(1)}, str(ckpt / "encoder.pth"))
+    torch.save({k: v for k, v in sd.items() if k.startswith("decoder.")},
+               str(ckpt / "depth.pth"))
+    with pytest.raises(RuntimeError, match="encoder.stray"):
+        monodepth2.Monodepth2Model(checkpoint=str(ckpt), device="cpu")
+
+
 def test_missing_default_checkpoint_raises_before_building(tmp_path,
                                                            monkeypatch):
     """No download: a missing default checkpoint raises, naming its path

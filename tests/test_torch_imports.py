@@ -4,7 +4,9 @@ without a CUDA card.
 Neither the port nor ``chip_smoke.py`` loads any module of the JAX package,
 not even one that imports no JAX: the host helpers the port needs are its
 own copies (``tests/test_torch_host_copies.py`` holds them against the
-originals)."""
+originals). ``tests/torch_mesh_worker.py``, the rank bodies of the mesh
+tests, loads none either. The data mesh is the port's own: no code of the
+port uses torch's ``SyncBatchNorm`` or ``DistributedDataParallel``."""
 
 import ast
 import json
@@ -64,13 +66,47 @@ def test_port_imports_without_jax():
               "utils.helpers", "io.metadata_io", "io.colmap_io",
               "pipeline.video", "pipeline.colmap_processor",
               "pipeline.scale_calibration", "pipeline.make_video",
-              "pipeline.process", "cli.params", "cli.main", "__main__"):
+              "pipeline.process", "cli.params", "cli.main", "__main__",
+              "parallel", "parallel.mesh"):
         assert "consistent_depth_tpu_torch." + m in mods
     assert JAX_FREE_HELPERS == []
     proc = _forbidden_after(
         ["import importlib", f"for m in {mods!r}:",
          "    importlib.import_module(m)"], forbid_cv2=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_mesh_worker_imports_without_jax():
+    proc = _forbidden_after(
+        [f"sys.path.insert(0, {os.path.join(REPO_ROOT, 'tests')!r})",
+         "import torch_mesh_worker"], forbid_cv2=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_uses_no_torch_data_parallel():
+    """No name, attribute or import of the port, the mesh tests' rank
+    bodies or ``chip_smoke.py`` is ``SyncBatchNorm`` or
+    ``DistributedDataParallel``: the global BN statistics, focal mean and
+    valid count are the port's own all-reduces."""
+    forbidden = {"SyncBatchNorm", "DistributedDataParallel"}
+    files = [os.path.join(d, f) for d, _, fs in os.walk(
+        os.path.dirname(consistent_depth_tpu_torch.__file__))
+        for f in fs if f.endswith(".py")]
+    files += [os.path.join(REPO_ROOT, "tests", "torch_mesh_worker.py"),
+              os.path.join(REPO_ROOT, "chip_smoke.py")]
+    assert len(files) > 50
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        names = set()
+        for n in ast.walk(tree):
+            if isinstance(n, ast.Name):
+                names.add(n.id)
+            elif isinstance(n, ast.Attribute):
+                names.add(n.attr)
+            elif isinstance(n, (ast.Import, ast.ImportFrom)):
+                names.update(a.name.split(".")[-1] for a in n.names)
+        assert not names & forbidden, (path, names & forbidden)
 
 
 def test_chip_smoke_imports_without_jax():

@@ -16,15 +16,17 @@ the largest relative RMSE of the final depth maps
 port and the JAX runs, as one JSON line. At the settings
 the goldens were made with (``--head 1 --lr 0``: untamed, the CLI's default
 lr), it also holds the JAX and the port runs against ``tests/golden/e2e``
-(an 8-device run): the largest relative gap of the pre-training eval means
-and the final-depth RMSE max.
+(an 8-device run): the largest relative gap of the eval means before and
+after training and the final-depth RMSE max.
 
     JAX_PLATFORMS=cpu python tools/torch_cli_noise_probe.py \
-        [--lr 4e-5] [--head 0.05] [--threads 2 [4 ...]] \
+        [--lr 4e-5] [--head 0.05] [--batch_size 2] [--threads 2 [4 ...]] \
         [--noise 1e-7 [1e-6 ...]] [--seeds 0 [1 ...]]
 
 ``--head`` scales the prediction head of the seed-0 weights (1 leaves
-them untamed). Needs both packages, so it runs where the tests run.
+them untamed). ``--batch_size`` is the batch of every run, all on one
+device: 16 is the goldens' global batch (8 devices at 2). Needs both
+packages, so it runs where the tests run.
 """
 
 import argparse
@@ -96,6 +98,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--lr", default="4e-5")
     ap.add_argument("--head", type=float, default=0.05)
+    ap.add_argument("--batch_size", type=int, default=2)
     ap.add_argument("--threads", type=int, nargs="+", default=[2],
                     help="torch threads: the first for the port's run and "
                     "the perturbed runs, each other for one more port run")
@@ -123,7 +126,9 @@ def main():
     from consistent_depth_tpu_torch.models import torch_import
     from consistent_depth_tpu_torch.pipeline.process import DatasetProcessor
 
-    argv = synthetic.E2E_PIPELINE_ARGS + ["--learning_rate", args.lr]
+    argv = synthetic.E2E_PIPELINE_ARGS + ["--learning_rate", args.lr,
+                                          "--batch_size",
+                                          str(args.batch_size)]
     with tempfile.TemporaryDirectory() as work:
         variables = jax.tree_util.tree_map(
             np.asarray, JaxMC(checkpoint="", seed=0).variables)
@@ -165,7 +170,8 @@ def main():
                 p.model_checkpoint = ckpt
                 DatasetProcessor(device="cpu").process(p)
 
-        result = {"lr": args.lr, "head": args.head, "threads": args.threads,
+        result = {"lr": args.lr, "head": args.head,
+                  "batch_size": args.batch_size, "threads": args.threads,
                   "noise": args.noise, "seeds": args.seeds,
                   "port_post_means": _post_means(paths["port"]),
                   "jax_post_means": _post_means(paths["jax"])}
@@ -175,7 +181,7 @@ def main():
                                                      paths[name])
         # the goldens' settings: untamed weights, lr resolved to 4e-4
         if args.head == 1 and _tag_dir(paths["jax"]).endswith(
-                "_LR0.0004_BS2_Oadam"):
+                "_LR0.0004_BS%d_Oadam" % args.batch_size):
             for name in ("jax", "port"):
                 d = ca.compare_depth_dirs(pjoin(GOLDEN, "final_depth"),
                                           pjoin(_tag_dir(paths[name]), "depth"))
@@ -183,6 +189,9 @@ def main():
                     "pre_eval_mean_gap": _mean_gap(
                         pjoin(_tag_dir(paths[name]), "eval"),
                         pjoin(GOLDEN, "eval"), pre=True),
+                    "post_eval_mean_gap": _mean_gap(
+                        pjoin(_tag_dir(paths[name]), "eval"),
+                        pjoin(GOLDEN, "eval"), pre=False),
                     "final_depth_rmse_max": d["rmse_max"]}
     print(json.dumps(result))
 
