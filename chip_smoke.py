@@ -182,12 +182,24 @@ Phases, each printing one JSON line:
    each, medians from CUDA events, the NCCL step's extra ms, and each
    engine's device time and idle share over 5 profiled steps; seconds of
    the phase.
+15. aux: under ``build/chip_smoke_aux/`` (deleted after), ``mc`` at full
+   width from phase 8's init: ``DepthModel.save``, a reload bitwise equal,
+   ``forward`` with ``metadata["scales"]`` bitwise ``apply``, the reloaded
+   model's forward bitwise the original's, a train-mode ``forward`` moving
+   the running stats, on one video of 8 frames at 224x384 in f32 (272 k x k
+   launches by the plan's routes), and the kernels' forward against plain;
+   ``ops.geometry.calibrate_scale`` on two plane-scene pairs and the
+   weighted MSE and RMSE losses (values and gradients) on the card against
+   the CPU (1e-5); ``visualize_calibration_pair`` on the card against the
+   CPU (1 level); ``calibrate_w_sparse_colmap`` on a sparse model of the
+   plane scene at 1/2.75 its size written by the port's ``write_model``,
+   recovering 2.75 (1e-5) for the frames that have a depth file.
 
 Then the card's name and power limit as nvidia-smi prints them, a
 ``{"kernels": [...]}`` line, whose launches add up each path's run
 (``launches_by_path`` splits them): for the conv's mc entries one phase-9
-epoch per precision, phase 11 and phase 14's mesh ranks (``mesh``), with
-the times of mc's classes; for each
+epoch per precision, phase 11, phase 14's mesh ranks (``mesh``) and
+phase 15's forwards (``aux``), with the times of mc's classes; for each
 backbone's entries (``same_conv_midas2``, ...) its timed steps and CLI run,
 with the times of its own classes; phase 6 and phase 11 for the
 correlation. Last comes ``{"ok": true, "device": {...}}``.
@@ -2902,6 +2914,232 @@ def mesh_path(torch, smi, init_sd, per_forward):
                             Counter())) for dt in ("f32", "bf16")}
 
 
+# aux path (phase 15): DepthModel's forward and save, calibrate_scale, the
+# weighted losses, a calibration render and the sparse calibration. The mc
+# forwards run on one video of AUX_FRAMES frames at SIZE (phase 3's batch-8
+# classes); the sparse model is the plane scene at 1/AUX_SCALE its size
+AUX_DIR = os.path.join(REPO, "build", "chip_smoke_aux")
+AUX_FRAMES = BATCH
+AUX_SCALE = 2.75
+AUX_SPARSE_FRAMES = 4
+AUX_SPARSE_POINTS = 200
+TOL_AUX_CPU = 1e-5
+TOL_AUX_LSB = 1
+
+
+def write_sparse_plane(colmap_io, image_io, geometry_np, scene, work_dir,
+                       scale, n_points, seed=0):
+    """A COLMAP sparse model of ``scene`` at 1/``scale`` its size under
+    ``work_dir/sparse`` (the port's ``write_model``): each frame observes
+    its own points, back-projected from integer pixels through its exact
+    depth, so that the depth sampled there is the point's (its first three
+    keypoints unmatched, id -1); the inverse
+    depth of every frame but the last under ``work_dir/depth``. Returns
+    the frames that have a depth file."""
+    n = len(scene["depths"])
+    H, W = scene["depths"].shape[1:]
+    rng = np.random.default_rng(seed)
+    extr = scene["extrinsics"].astype(np.float64)
+    cams = colmap_io.intrinsics_to_camera(scene["intrinsics"],
+                                          src_im_size=(W, H))
+    images = colmap_io.extrinsics_to_images(
+        np.concatenate([extr[..., :3], extr[..., 3:] / scale], -1))
+    points, pid = {}, 1
+    for i in range(n):
+        xy = np.stack([rng.integers(0, W, n_points),
+                       rng.integers(0, H, n_points)], -1).astype(np.float64)
+        d = scene["depths"][i][xy[:, 1].astype(int), xy[:, 0].astype(int)]
+        cam = geometry_np.pixels_to_points(
+            scene["intrinsics"][i].astype(np.float64), d.astype(np.float64),
+            xy)
+        world = cam @ extr[i, :, :3].T + extr[i, :, 3]
+        ids = np.arange(pid, pid + n_points)
+        for k, p in enumerate(ids):
+            points[int(p)] = colmap_io.Point3D(
+                id=int(p), xyz=colmap_io.convert_points3D(world[k] / scale),
+                rgb=np.zeros(3, np.uint8), error=0.0,
+                image_ids=np.array([i + 1], np.int32),
+                point2D_idxs=np.array([k], np.int32))
+        ids[:3] = -1  # keypoints without a point
+        images[i + 1].xys, images[i + 1].point3D_ids = xy, ids
+        pid += n_points
+    colmap_io.write_model(cams, images, points,
+                          os.path.join(work_dir, "sparse"))
+    os.makedirs(os.path.join(work_dir, "depth"))
+    for i in range(n - 1):
+        image_io.save_raw_float32_image(
+            os.path.join(work_dir, "depth", f"frame_{i:06d}.raw"),
+            1.0 / scene["depths"][i])
+    return list(range(n - 1))
+
+
+def aux_path(torch, smi, s2d_conv, init_sd, classes, per_forward,
+             device="cuda"):
+    """Phase 15 in a scratch directory, deleted after; returns the
+    forwards' launches by route. ``device="cpu"`` rehearses it on the CPU
+    (then "card" is the CPU too, and no kernel launches)."""
+    shutil.rmtree(AUX_DIR, ignore_errors=True)
+    os.makedirs(AUX_DIR)
+    try:
+        return _aux_checks(torch, smi, s2d_conv, init_sd, classes,
+                           per_forward, device)
+    finally:
+        shutil.rmtree(AUX_DIR, ignore_errors=True)
+
+
+def _aux_checks(torch, smi, s2d_conv, init_sd, classes, per_forward,
+                device):
+    import cv2
+
+    from consistent_depth_tpu_torch.io import colmap_io, image_io
+    from consistent_depth_tpu_torch.models.registry import (
+        create_depth_model)
+    from consistent_depth_tpu_torch.ops import geometry, geometry_np, losses
+    from consistent_depth_tpu_torch.pipeline.scale_calibration import (
+        visualize_calibration_pair)
+    from consistent_depth_tpu_torch.utils.calibration import (
+        calibrate_w_sparse_colmap)
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    # -- DepthModel: save, reload, forward with scales, train-mode forward
+    model = create_depth_model("mc", checkpoint="", device=device)
+    model.net.load_state_dict(init_sd)
+    pth = os.path.join(AUX_DIR, "mc.pth")
+    model.save(pth)
+    back = create_depth_model("mc", checkpoint=pth, device=device)
+    reload_bitwise = all(torch.equal(v, init_sd[k])
+                         for k, v in back.net.state_dict().items())
+    rng = np.random.default_rng(15)
+    images = rng.random((1, AUX_FRAMES, *SIZE, 3), dtype=np.float32)
+    scales = rng.uniform(0.5, 2.0, (1, AUX_FRAMES)).astype(np.float32)
+    bn = "seq.1.running_mean"
+    sync()
+    s2d_conv.reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        d_fwd = model.forward(images, {"scales": scales}, train=False)
+        d_apply = model.apply(torch.from_numpy(images).to(device),
+                              torch.from_numpy(scales).to(device),
+                              train=False)
+        d_back = back.forward(images, {"scales": scales}, train=False)
+        d_train = model.forward(images)
+    sync()
+    forward_s = time.perf_counter() - t0
+    launches = s2d_conv.launches
+    routes = dict(s2d_conv.route_counts)
+    n_fwd = 4
+    want_routes = {f"forward_{r}": n * n_fwd for r, n in expected_routes(
+        s2d_conv, classes, torch.float32, False).items()}
+    stats_moved = not torch.equal(model.net.state_dict()[bn], init_sd[bn])
+    with torch.no_grad(), plain_convs(s2d_conv):
+        d_plain = back.forward(images, {"scales": scales}, train=False)
+    plain_err = rel_err(d_fwd.cpu().numpy(), d_plain.cpu().numpy())
+    finite = all(bool(torch.isfinite(d).all())
+                 for d in (d_fwd, d_back, d_train))
+    del model, back
+
+    # -- calibrate_scale and the weighted losses, card against CPU
+    scene = make_plane_scene(torch, geometry, AUX_SPARSE_FRAMES, SIZE)
+    calib_err = 0.0
+    for pair in ([0, 1], [2, 0]):
+        args = [torch.from_numpy(a) for a in (
+            scene["extrinsics"][pair], scene["intrinsics"][pair],
+            scene["depths"][pair] * np.float32(1.7))]
+        card = geometry.calibrate_scale(*(a.to(device) for a in args))
+        cpu = geometry.calibrate_scale(*args)
+        calib_err = max(calib_err, abs(float(card) - float(cpu))
+                        / abs(float(cpu)))
+    x, target = (torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, *SIZE, 2)).astype(np.float32)) for _ in range(2))
+    weights = torch.from_numpy(rng.random((TRAIN_BATCH, *SIZE),
+                                          dtype=np.float32))
+    loss_err = 0.0
+    for name in ("weighted_mse_loss", "weighted_rmse_loss"):
+        outs = []
+        for dev in (device, "cpu"):
+            xd = x.detach().to(dev).requires_grad_()
+            wd = weights.detach().to(dev).requires_grad_()
+            val = getattr(losses, name)(xd, target.to(dev), wd)
+            val.sum().backward()
+            outs.append([t.detach().cpu().numpy()
+                         for t in (val, xd.grad, wd.grad)])
+        loss_err = max(loss_err, *(rel_err(a, b)
+                                   for a, b in zip(*outs)))
+
+    # -- one calibration render, card against CPU
+    color_fmt = os.path.join(AUX_DIR, "color_{:06d}.png")
+    depth_fmt = os.path.join(AUX_DIR, "inv_depth_{:06d}.raw")
+    for i in (0, 1):
+        cv2.imwrite(color_fmt.format(i),
+                    np.uint8(np.round(scene["frames"][i] * 255)))
+        image_io.save_raw_float32_image(depth_fmt.format(i),
+                                        1.0 / scene["depths"][i])
+    extr = scene["extrinsics"].astype(np.float64)
+    intr = scene["intrinsics"].astype(np.float64)
+    vis = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        out_dir = os.path.join(AUX_DIR, f"vis_{name}")
+        visualize_calibration_pair(extr, intr, depth_fmt, color_fmt, (1, 0),
+                                   out_dir, device=dev)
+        vis[name] = {f: cv2.imread(os.path.join(out_dir, f)).astype(int)
+                    for f in sorted(os.listdir(out_dir))}
+    vis_lsb = max(int(np.abs(vis["card"][f] - vis["cpu"][f]).max())
+                  for f in vis["cpu"])
+    warped_mean = float(np.mean([v.mean() for f, v in vis["card"].items()
+                                 if "warped" in f]))
+
+    # -- the sparse calibration of a model at a known scale
+    have = write_sparse_plane(colmap_io, image_io, geometry_np, scene,
+                              AUX_DIR, AUX_SCALE, AUX_SPARSE_POINTS)
+    sparse = calibrate_w_sparse_colmap(
+        os.path.join(AUX_DIR, "sparse"),
+        os.path.join(AUX_DIR, "depth", "frame_{:06d}.raw"), SIZE[::-1])
+    scale_err = max((abs(v - AUX_SCALE) / AUX_SCALE for v in sparse.values()),
+                    default=float("inf"))
+
+    row = {
+        "phase": "aux", "size": list(SIZE), "frames": AUX_FRAMES,
+        "reload_bitwise": reload_bitwise,
+        "forward_scales_is_apply": bool(torch.equal(d_fwd, d_apply)),
+        "reloaded_forward_bitwise": bool(torch.equal(d_fwd, d_back)),
+        "train_forward_moved_stats": stats_moved, "finite": finite,
+        "forward_seconds": forward_s, "launches": launches,
+        "expected_launches": n_fwd * per_forward, "route_counts": routes,
+        "expected_routes": want_routes,
+        "kernel_vs_plain_rel_err": plain_err, "tol_plain": TOL_EVAL_PLAIN,
+        "calibrate_scale_card_vs_cpu": calib_err,
+        "weighted_losses_card_vs_cpu": loss_err, "tol_cpu": TOL_AUX_CPU,
+        "vis_files": sorted(vis["card"]), "vis_card_vs_cpu_lsb": vis_lsb,
+        "vis_warped_mean_level": warped_mean, "tol_lsb": TOL_AUX_LSB,
+        "sparse_scales": {str(k): v for k, v in sparse.items()},
+        "sparse_known_scale": AUX_SCALE, "sparse_scale_rel_err": scale_err,
+        "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(row)
+    require(reload_bitwise, "DepthModel.save then a reload changed weights")
+    require(row["forward_scales_is_apply"], "forward with scales != apply")
+    require(row["reloaded_forward_bitwise"],
+            "the reloaded model's forward differs")
+    require(stats_moved, "a train-mode forward left the running stats")
+    require(finite, "non-finite depth")
+    require(launches == n_fwd * per_forward,
+            f"{launches} kernel launches, expected {n_fwd * per_forward}")
+    require(all(routes.get(k, 0) == v for k, v in want_routes.items()),
+            f"phase 15 took routes {routes}, expected {want_routes}")
+    require(plain_err <= TOL_EVAL_PLAIN, f"forward vs plain {plain_err}")
+    require(calib_err <= TOL_AUX_CPU, f"calibrate_scale vs CPU {calib_err}")
+    require(loss_err <= TOL_AUX_CPU, f"weighted losses vs CPU {loss_err}")
+    require(len(vis["card"]) == 4 and sorted(vis["card"]) == sorted(
+        vis["cpu"]), f"calibration renders {sorted(vis['card'])}")
+    require(vis_lsb <= TOL_AUX_LSB, f"calibration render {vis_lsb} levels")
+    require(sorted(sparse) == have, f"sparse scales for {sorted(sparse)}")
+    require(scale_err <= TOL_AUX_CPU, f"sparse scale off by {scale_err}")
+    return routes
+
+
 def main() -> int:
     try:
         import torch
@@ -3242,10 +3480,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_routes = mesh_path(torch, smi, context["init_sd"], per_forward)
 
+    # -- 15. aux: DepthModel's save and forward, calibration, renders -----
+    torch.cuda.empty_cache()
+    aux_routes = aux_path(torch, smi, s2d_conv, context["init_sd"], classes,
+                          per_forward)
+
     # the launches by route of each path that runs the kernel. mc's conv
     # entries: one train epoch of phase 9 (179 steps), by precision, the
-    # CLI's run of phase 11 (f32) and phase 14's mesh ranks' train steps
-    # (both ranks, by precision), with the times of mc's classes per
+    # CLI's run of phase 11 (f32), phase 14's mesh ranks' train steps
+    # (both ranks, by precision) and phase 15's four f32 forwards, with the times of mc's classes per
     # batch-8 forward (phase 3) or per train step (phase 7). Each
     # backbone's entries (same_conv_<name>...): its timed train steps (by
     # precision) and CLI run (f32) of phases 12-13, with the times of its
@@ -3257,7 +3500,8 @@ def main() -> int:
     def mc_runs(dt, key):
         return {"epoch": epochs[dt]["train_epoch"]["route_counts"][key],
                 "cli": cli["route_counts"][key] if dt == "f32" else 0,
-                "mesh": mesh_routes[dt][key]}
+                "mesh": mesh_routes[dt][key],
+                "aux": aux_routes.get(key, 0) if dt == "f32" else 0}
 
     def backbone_runs(runs):
         return lambda dt, key: {

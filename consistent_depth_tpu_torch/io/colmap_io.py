@@ -1,12 +1,13 @@
-"""COLMAP model readers and the calibration conversion: the port's copy of
-``consistent_depth_tpu/io/colmap_io.py``, as far as scale calibration and
-the COLMAP driver call it (plain numpy).
+"""COLMAP model IO and the calibration conversion: the port's copy of
+``consistent_depth_tpu/io/colmap_io.py`` (plain numpy, no dependency on the
+COLMAP checkout).
 
-Reads the standard COLMAP sparse-model formats (cameras, images, points3D
-in ``.bin``/``.txt``) and the dense patch-match array format
-(``.geometric.bin``/``.photometric.bin``), and converts the calibration
-from COLMAP's convention (y down, z forward) to this framework's (y up,
-camera looks along -z).
+Reads and writes the standard COLMAP sparse-model formats (cameras, images,
+points3D in ``.bin``/``.txt``) and the dense patch-match array format
+(``.geometric.bin``/``.photometric.bin``), byte for byte as the JAX
+package writes them, and converts the calibration between COLMAP's
+convention (y down, z forward) and this framework's (y up, camera looks
+along -z).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import os
 import struct
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -118,6 +119,15 @@ def read_cameras_binary(path: str) -> Dict[int, Camera]:
     return cameras
 
 
+def write_cameras_binary(cameras: Dict[int, Camera], path: str) -> None:
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(cameras)))
+        for cam in cameras.values():
+            model_id = CAMERA_NAME_TO_ID[cam.model]
+            f.write(struct.pack("<iiQQ", cam.id, model_id, cam.width, cam.height))
+            f.write(struct.pack("<" + "d" * len(cam.params), *cam.params))
+
+
 def read_images_binary(path: str) -> Dict[int, Image]:
     images = {}
     with open(path, "rb") as f:
@@ -147,6 +157,20 @@ def read_images_binary(path: str) -> Dict[int, Image]:
     return images
 
 
+def write_images_binary(images: Dict[int, Image], path: str) -> None:
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(images)))
+        for im in images.values():
+            f.write(struct.pack(
+                "<idddddddi", im.id, *im.qvec, *im.tvec, im.camera_id))
+            f.write(im.name.encode("utf-8") + b"\x00")
+            n = len(im.point3D_ids)
+            f.write(struct.pack("<Q", n))
+            for k in range(n):
+                f.write(struct.pack(
+                    "<ddq", im.xys[k, 0], im.xys[k, 1], im.point3D_ids[k]))
+
+
 def read_points3d_binary(path: str) -> Dict[int, Point3D]:
     points = {}
     with open(path, "rb") as f:
@@ -169,6 +193,17 @@ def read_points3d_binary(path: str) -> Dict[int, Point3D]:
     return points
 
 
+def write_points3d_binary(points: Dict[int, Point3D], path: str) -> None:
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(points)))
+        for p in points.values():
+            f.write(struct.pack(
+                "<QdddBBBd", p.id, *p.xyz, *[int(v) for v in p.rgb], p.error))
+            f.write(struct.pack("<Q", len(p.image_ids)))
+            for im_id, pt_idx in zip(p.image_ids, p.point2D_idxs):
+                f.write(struct.pack("<ii", int(im_id), int(pt_idx)))
+
+
 # ---------------------------------------------------------------------------
 # Text sparse model
 # ---------------------------------------------------------------------------
@@ -187,6 +222,14 @@ def read_cameras_text(path: str) -> Dict[int, Camera]:
                 np.array([float(e) for e in elems[4:]]),
             )
     return cameras
+
+
+def write_cameras_text(cameras: Dict[int, Camera], path: str) -> None:
+    with open(path, "w") as f:
+        f.write("# Camera list: CAMERA_ID, MODEL, WIDTH, HEIGHT, PARAMS[]\n")
+        for cam in cameras.values():
+            params = " ".join(repr(float(p)) for p in cam.params)
+            f.write(f"{cam.id} {cam.model} {cam.width} {cam.height} {params}\n")
 
 
 def read_images_text(path: str) -> Dict[int, Image]:
@@ -214,6 +257,21 @@ def read_images_text(path: str) -> Dict[int, Image]:
     return images
 
 
+def write_images_text(images: Dict[int, Image], path: str) -> None:
+    with open(path, "w") as f:
+        f.write("# Image list: IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, "
+                "CAMERA_ID, NAME then POINTS2D[] as (X, Y, POINT3D_ID)\n")
+        for im in images.values():
+            q = " ".join(repr(float(v)) for v in im.qvec)
+            t = " ".join(repr(float(v)) for v in im.tvec)
+            f.write(f"{im.id} {q} {t} {im.camera_id} {im.name}\n")
+            pts = " ".join(
+                f"{float(x)!r} {float(y)!r} {int(pid)}"
+                for (x, y), pid in zip(im.xys, im.point3D_ids)
+            )
+            f.write(pts + "\n")
+
+
 def read_points3d_text(path: str) -> Dict[int, Point3D]:
     points = {}
     with open(path, "r") as f:
@@ -235,8 +293,22 @@ def read_points3d_text(path: str) -> Dict[int, Point3D]:
     return points
 
 
+def write_points3d_text(points: Dict[int, Point3D], path: str) -> None:
+    with open(path, "w") as f:
+        f.write("# 3D point list: POINT3D_ID, X, Y, Z, R, G, B, ERROR, "
+                "TRACK[] as (IMAGE_ID, POINT2D_IDX)\n")
+        for p in points.values():
+            xyz = " ".join(repr(float(v)) for v in p.xyz)
+            rgb = " ".join(str(int(v)) for v in p.rgb)
+            track = " ".join(
+                f"{int(i)} {int(j)}"
+                for i, j in zip(p.image_ids, p.point2D_idxs)
+            )
+            f.write(f"{p.id} {xyz} {rgb} {float(p.error)!r} {track}\n")
+
+
 # ---------------------------------------------------------------------------
-# Model directory
+# Model directory read/write
 # ---------------------------------------------------------------------------
 
 def read_model(path: str, ext: str = ".bin"):
@@ -253,6 +325,19 @@ def read_model(path: str, ext: str = ".bin"):
         p3d_path = j(path, "points3D.txt")
         points = read_points3d_text(p3d_path) if os.path.isfile(p3d_path) else {}
     return cameras, images, points
+
+
+def write_model(cameras, images, points3D, path: str, ext: str = ".bin"):
+    j = os.path.join
+    os.makedirs(path, exist_ok=True)
+    if ext == ".bin":
+        write_cameras_binary(cameras, j(path, "cameras.bin"))
+        write_images_binary(images, j(path, "images.bin"))
+        write_points3d_binary(points3D, j(path, "points3D.bin"))
+    else:
+        write_cameras_text(cameras, j(path, "cameras.txt"))
+        write_images_text(images, j(path, "images.txt"))
+        write_points3d_text(points3D, j(path, "points3D.txt"))
 
 
 # ---------------------------------------------------------------------------
@@ -278,8 +363,18 @@ def read_array(path: str) -> np.ndarray:
     return np.transpose(array, (1, 0, 2)).squeeze()
 
 
+def write_array(array: np.ndarray, path: str) -> None:
+    arr = np.asarray(array, dtype=np.float32)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    h, w, c = arr.shape
+    with open(path, "wb") as f:
+        f.write(f"{w}&{h}&{c}&".encode("ascii"))
+        np.transpose(arr, (1, 0, 2)).ravel(order="F").tofile(f)
+
+
 # ---------------------------------------------------------------------------
-# Calibration conversion (COLMAP -> framework convention)
+# Calibration conversion (COLMAP <-> framework convention)
 # ---------------------------------------------------------------------------
 
 # COLMAP: y down, z forward. Framework: y up, camera looks along -z.
@@ -328,6 +423,49 @@ def images_to_extrinsics(
     return np.stack(extrinsics, axis=0)
 
 
+def extrinsics_to_images(extrinsics: np.ndarray) -> Dict[int, Image]:
+    """Inverse of :func:`images_to_extrinsics`
+    (reference: utils/load_colmap.py:70-84)."""
+    images = {}
+    for i, extr in enumerate(extrinsics):
+        R, t = extr[:, :3], extr[:, -1:]
+        Rc = ROT_COLMAP_TO_NORMAL.dot(R.T).dot(ROT_COLMAP_TO_NORMAL.T)
+        tc = -Rc.dot(ROT_COLMAP_TO_NORMAL.T).dot(t)
+        images[i + 1] = Image(
+            id=i + 1, qvec=rotmat2qvec(Rc), tvec=tc.flatten(), camera_id=1,
+            name="frame_%06d.png" % i,
+        )
+    return images
+
+
+def intrinsics_to_camera(
+    intrinsics: np.ndarray,
+    src_im_size: Optional[np.ndarray] = None,
+    dst_im_size: Optional[np.ndarray] = None,
+    eps: float = 0.01,
+) -> Dict[int, Camera]:
+    """Shared SIMPLE_PINHOLE/PINHOLE camera from an intrinsics row
+    (reference: utils/load_colmap.py:34-67)."""
+    fxy = np.array(intrinsics[0][:2], dtype=np.float64)
+    cxy = np.array(intrinsics[0][-2:], dtype=np.float64)
+    if src_im_size is None:
+        src_im_size = (2 * cxy).astype(int)
+    if dst_im_size is None:
+        dst_im_size = src_im_size
+    ratio = np.array(dst_im_size) / np.array(src_im_size, dtype=float)
+    fxy = fxy * ratio
+    cxy = cxy * ratio
+    if abs(fxy[0] - fxy[1]) < eps:
+        model, params = "SIMPLE_PINHOLE", np.array((fxy[0], cxy[0], cxy[1]))
+    else:
+        model, params = "PINHOLE", np.array((fxy[0], fxy[1], cxy[0], cxy[1]))
+    cam = Camera(
+        id=1, model=model,
+        width=int(dst_im_size[0]), height=int(dst_im_size[1]), params=params,
+    )
+    return {cam.id: cam}
+
+
 def ordered_image_ids(images: Dict[int, Image]) -> List[int]:
     return sorted(images.keys(), key=lambda iid: images[iid].name)
 
@@ -341,3 +479,17 @@ def convert_calibration(cameras, images, size_new):
         cameras_to_intrinsics(cameras, cam_ids, size_new),
         images_to_extrinsics(images, im_ids),
     )
+
+
+def convert_points3D(pts3D: np.ndarray) -> np.ndarray:
+    """(3, N) points from COLMAP basis to framework basis."""
+    return ROT_COLMAP_TO_NORMAL.dot(pts3D)
+
+
+def save_colmap(path, intrinsics, extrinsics,
+                src_im_size=None, dst_im_size=None, ext=".txt"):
+    """Export intrinsics/extrinsics as an empty COLMAP project."""
+    cameras = intrinsics_to_camera(
+        intrinsics, src_im_size=src_im_size, dst_im_size=dst_im_size)
+    images = extrinsics_to_images(extrinsics)
+    write_model(cameras, images, {}, path, ext)

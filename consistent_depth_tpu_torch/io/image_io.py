@@ -128,3 +128,24 @@ def save_image(file_name: str, image: np.ndarray) -> None:
 
         arr = np.clip(255.0 * np.asarray(image), 0, 255).astype("uint8")
         Image.fromarray(arr).save(file_name)
+
+
+def _main(argv=None):
+    """Resize or convert one image: ``python -m
+    consistent_depth_tpu_torch.io.image_io --input_image a.png
+    --output_image b.raw [--max_size 768]`` (reference: image_io.py:190-200)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Resize/convert an image (.png/.jpg/.raw)")
+    parser.add_argument("--input_image", type=str, required=True)
+    parser.add_argument("--output_image", type=str, required=True)
+    parser.add_argument("--max_size", type=int, default=768,
+                        help="max size of the long image dimension")
+    args, _ = parser.parse_known_args(argv)
+    img = load_image(args.input_image, max_size=int(args.max_size))
+    save_image(args.output_image, img)
+
+
+if __name__ == "__main__":
+    _main()

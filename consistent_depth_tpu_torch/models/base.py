@@ -140,3 +140,30 @@ class DepthModel:
             depth = depth * scales.reshape(
                 scales.shape[0], scales.shape[1], 1, 1)
         return depth
+
+    def forward(self, images, metadata=None, train: bool = True
+                ) -> torch.Tensor:
+        """``apply`` on ``images`` (B, N, H, W, 3), an array or a tensor,
+        moved to the model's device, with ``metadata["scales"]`` as the
+        per-frame depth multipliers when given. In train mode the batch
+        norms update their running stats in place (the JAX package's
+        stateful ``forward``)."""
+        images = torch.as_tensor(images, device=self.device)
+        scales = None
+        if metadata is not None and "scales" in metadata:
+            scales = torch.as_tensor(metadata["scales"], device=self.device)
+        return self.apply(images, scales=scales, train=train)
+
+    def parameters(self) -> Dict[str, nn.Parameter]:
+        """The network's parameters by their torch state_dict key."""
+        return dict(self.net.named_parameters())
+
+    def save(self, file_name: str) -> None:
+        """Write the network's state_dict as a torch-layout ``.pth``, in
+        f32 whatever the model's dtype, the layout both packages' readers
+        take (reference writes raw state_dicts: depth_fine_tuning.py:302-304)."""
+        from .torch_import import save_checkpoint
+
+        save_checkpoint(file_name, {
+            k: v.float() if v.is_floating_point() else v
+            for k, v in self.net.state_dict().items()})

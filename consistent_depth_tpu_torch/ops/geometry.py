@@ -103,6 +103,25 @@ def depth_to_points(depths: torch.Tensor,
     return pixels_to_points(intrinsics, depths, pixels)
 
 
+def calibrate_scale(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
+                    depths: torch.Tensor) -> torch.Tensor:
+    """Scene-centre based global scale between a depth pair and its camera
+    translation (reference: utils/geometry.py:143-174; auxiliary, not on
+    the main pipeline path), on the inputs' device.
+
+    Args:
+        extrinsics (2, 3, 4), intrinsics (2, 4), depths (2, H, W)
+    Returns:
+        () scale
+    """
+    points_cam = depth_to_points(depths, intrinsics)
+    Rs, ts = extrinsics[..., :, :3], extrinsics[..., :, 3]
+    points_rot = _rotate(Rs, points_cam)
+    mus = points_rot.reshape(points_rot.shape[0], -1, 3).mean(1)
+    dmu, dt = mus[0] - mus[1], ts[0] - ts[1]
+    return -(dt * dmu).sum() / (dt * dt).sum()
+
+
 def _index_on(tgt_ids, device: torch.device) -> torch.Tensor:
     """``tgt_ids`` as one index tensor on ``device``: a Python list indexes
     a card tensor through a host-to-card copy of its own at every use."""

@@ -52,6 +52,23 @@ def weighted_mean_loss(x: torch.Tensor, weights: torch.Tensor,
     return ((w / w_sum) * x.reshape(B, -1)).sum(-1)
 
 
+def weighted_mse_loss(x: torch.Tensor, target: torch.Tensor,
+                      weights: torch.Tensor, eps: float = 1e-6
+                      ) -> torch.Tensor:
+    """(B, H, W, C) inputs, (B, H, W) weights -> (B,) of weighted mean
+    squared error summed over channels."""
+    return weighted_mean_loss(((x - target) ** 2).sum(-1), weights, eps)
+
+
+def weighted_rmse_loss(x: torch.Tensor, target: torch.Tensor,
+                       weights: torch.Tensor, eps: float = 1e-6
+                       ) -> torch.Tensor:
+    """(B, H, W, C) inputs, (B, H, W) weights -> (B,) of the weighted mean
+    of the per-pixel Euclidean error over channels."""
+    return weighted_mean_loss(torch.linalg.vector_norm(x - target, dim=-1),
+                              weights, eps)
+
+
 def geometry_consistency_loss(
         points_cam: torch.Tensor, intrinsics: torch.Tensor,
         extrinsics: torch.Tensor, pixels: torch.Tensor, flows: torch.Tensor,

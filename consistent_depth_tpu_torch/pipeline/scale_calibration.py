@@ -291,6 +291,44 @@ def render_calibration(colors: torch.Tensor, depths: torch.Tensor,
     return u8(colors), u8(warped.reshape(B, 2, H, W, C))
 
 
+def visualize_calibration_pair(
+    extrinsics, intrinsics, depth_fmt, color_fmt, id_pair, vis_dir,
+    device="cuda",
+):
+    """Depth-based cross-warp sanity render for one frame pair (reference:
+    scale_calibration.py:84-121): each frame, and the other frame warped
+    into its view on ``device``, as PNGs (levels rounded half to even, as
+    ``cv2.imwrite`` rounds a float image). Does nothing when a depth file
+    is missing."""
+    import cv2
+
+    from ..data.video_dataset import load_color
+
+    if any(not os.path.isfile(depth_fmt.format(i)) for i in id_pair):
+        return
+    colors = np.stack([load_color(color_fmt.format(i)) for i in id_pair])
+    depths = 1.0 / np.stack(
+        [image_io.load_raw_float32_image(depth_fmt.format(i))
+         for i in id_pair])
+    with torch.inference_mode():
+        inputs = _upload((colors, depths,
+                          extrinsics[list(id_pair)].astype(np.float32),
+                          intrinsics[list(id_pair)].astype(np.float32)),
+                         torch.device(device))
+        warped = geometry.warp_image(*inputs, [1, 0]).cpu().numpy()
+
+    def u8(x):
+        return np.rint(np.clip(x, 0, 1) * 255).astype(np.uint8)
+
+    os.makedirs(vis_dir, exist_ok=True)
+    for k, i in enumerate(id_pair):
+        other = id_pair[1 - k]
+        cv2.imwrite(pjoin(vis_dir, f"frame_{i:06d}.png"), u8(colors[k]))
+        cv2.imwrite(
+            pjoin(vis_dir, f"frame_{other:06d}_warped_to_{i:06d}.png"),
+            u8(warped[k]))
+
+
 def visualize_all_calibration(
     extrinsics, intrinsics, depth_fmt, color_fmt, frame_range, vis_dir,
     batch_pairs: int = 16, device="cuda",

@@ -19,7 +19,7 @@ from collections import namedtuple
 from enum import Enum, auto, unique
 from math import ceil, floor, log2
 from typing import (Any, Dict, Iterable, List, NamedTuple, Optional, Sequence,
-                    Set)
+                    Set, Tuple)
 
 from .frame_range import FrameRange
 
@@ -141,3 +141,14 @@ class SamplePairs:
             Pair(*sorted((p[0], p[1])))
             for p in pairs
         }
+
+
+def to_in_range(
+    pairs: Iterable[Sequence[int]],
+    frame_range: Optional[Tuple[int, int]] = None,
+):
+    """Keep only pairs fully inside the half-open range [lo, hi)."""
+    if frame_range is None:
+        return pairs
+    lo, hi = frame_range
+    return [p for p in pairs if all(lo <= i < hi for i in p)]

@@ -1,11 +1,13 @@
 """Console and filesystem conveniences of the pipeline stages: the port's
-copy of ``consistent_depth_tpu/utils/helpers.py``, as far as
-``pipeline/`` calls it (mkdir -p, and the banners around stage
-transitions; one ``_frame`` renderer draws both banner styles)."""
+copy of ``consistent_depth_tpu/utils/helpers.py`` (mkdir -p, the banners
+around stage transitions, which one ``_frame`` renderer draws, an
+attribute-access dict, and a stdout gag for chatty callees)."""
 
 from __future__ import annotations
 
+import contextlib
 import os
+from typing import Iterator
 
 
 def mkdir_ifnotexists(path: str) -> None:
@@ -30,3 +32,29 @@ def print_title(text: str) -> None:
 def print_banner(text: str) -> None:
     """Major stage banner: starred box."""
     print(_frame(text, "*", sides=4))
+
+
+class dotdict(dict):
+    """Mapping whose items are also readable/writable as attributes; a
+    missing attribute reads as None."""
+
+    def __getattr__(self, key):
+        try:
+            return self[key]
+        except KeyError:
+            return None
+
+    def __setattr__(self, key, value):
+        self[key] = value
+
+    def __delattr__(self, key):
+        del self[key]
+
+
+@contextlib.contextmanager
+def suppressed_stdout() -> Iterator[None]:
+    """Swallow everything written to stdout inside the ``with`` block, to
+    the null device rather than a buffer."""
+    with open(os.devnull, "w") as devnull:
+        with contextlib.redirect_stdout(devnull):
+            yield

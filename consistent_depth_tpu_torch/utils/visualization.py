@@ -1,6 +1,7 @@
-"""Depth visualisation: the port's copy of ``visualize_depth`` and
-``visualize_depth_dir`` of ``consistent_depth_tpu/utils/visualization.py``
-(reference: utils/visualization.py:20-101).
+"""Depth visualisation: the port's copy of
+``consistent_depth_tpu/utils/visualization.py`` (reference:
+utils/visualization.py): ``visualize_depth``, ``visualize_depth_dir``,
+``apply_mask`` and ``create_video``.
 
 The magma colour map is carried as data, :data:`MAGMA_LUT`: the 256 BGR
 entries with the reference's gamma-2.2 pass folded in, as the JAX
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import logging
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -109,3 +111,28 @@ def visualize_depth_dir(
         if os.path.exists(dst_path) and not force:
             continue
         cv2.imwrite(dst_path, visualize_depth(read(src), d_min, d_max))
+
+
+def apply_mask(im, mask, mask_color=None):
+    """Highlight masked-out regions (reference:
+    utils/visualization.py:115-124)."""
+    im = np.asarray(im)
+    im = im.reshape(im.shape[:2] + (-1,))
+    C = im.shape[-1]
+    mask = np.asarray(mask).reshape(mask.shape[:2] + (-1,)) > 0
+    if mask_color is None:
+        mask_color = np.array([0, 255, 0] if C == 3 else 1)
+    mask_color = np.asarray(mask_color).reshape(1, 1, C)
+    result = 0.7 * im + 0.3 * ((1 - mask) * mask_color)
+    return result.squeeze()
+
+
+def create_video(pattern: str, output_file: str, ffmpeg_bin: str = "ffmpeg"):
+    """Encode the frames matching ``pattern`` into ``output_file`` at 30
+    fps with ``ffmpeg_bin`` (H.264, crf 27); nothing when the file
+    exists."""
+    if not os.path.exists(output_file):
+        cmd = [ffmpeg_bin, "-r", "30", "-i", pattern,
+               "-c:v", "libx264", "-crf", "27", "-pix_fmt", "yuv420p",
+               output_file]
+        subprocess.call(cmd)

@@ -7,17 +7,26 @@ tests/test_torch_train_step.py), crossed over by
 Bands:
 
 - ``train_epoch``, Adam 4e-4, three steps: the step-0 loss within 1e-5
-  relative (measured 2.7e-6; it is one train-mode forward and loss, whose
-  band across the packages is tests/test_torch_train_step.py's 1e-5, where
-  JAX's scan against its own steps agrees to 1e-6), step 1 within 1e-3
-  (measured 6.8e-4; JAX's scan against its steps, 1e-4: Adam's first
-  update moves every parameter by about lr times the sign of its
-  gradient, so gradients near zero whose sign differs by rounding
-  between the packages move by the whole lr), every step within 8e-2, the
-  final parameters within 5e-2 relative L2 (the bands of
-  tests/test_train_epoch.py, where JAX against itself spreads that far:
-  train-mode BN at random init amplifies rounding); ``skipped_nan`` and
-  ``step`` equal; the captured depth of step 0 within 1e-4 relative;
+  relative (measured 1.4-2.4e-6; it is one train-mode forward and loss,
+  whose band across the packages is tests/test_torch_train_step.py's 1e-5,
+  where JAX's scan against its own steps agrees to 1e-6), step 1 within
+  1e-2, every step within 8e-2, the final parameters within 5e-2
+  relative L2 (the bands of tests/test_train_epoch.py, where JAX against
+  itself spreads that far: train-mode BN at random init amplifies
+  rounding); ``skipped_nan`` and ``step`` equal; the captured depth of
+  step 0 within 1e-4 relative. The step-1 band is twice the largest gap
+  that ``tools/torch_epoch_band_probe.py`` measured on a CPU host: JAX
+  against itself under 1e-7 relative weight noise, ten seeds, 1.9e-3 to
+  4.0e-3; the port against JAX at 1, 2 and 4 torch threads, 3.0e-3,
+  4.1e-3 and 3.8e-3. Adam's first update moves every parameter by about
+  lr times the sign of its gradient, so gradients near zero whose sign
+  differs by rounding move by the whole lr, and the step-1 loss spreads
+  that far whichever package runs it. The band catches, from the same
+  probe, lr x 1.5 (gap 0.22) and Adam without its bias correction
+  (0.75); it does not catch Adam's eps at 1e-6 (3.0e-3, inside the
+  spread; the former 1e-3 band failed it and the unfaulted port alike).
+  It holds at 1, 2 and 4 torch threads
+  (``test_train_epoch_matches_jax_at_threads``);
 - each eval pass (paired, deduplicated): per-pair losses and
   ``depth_frames`` within 1e-4 relative, ``frames_seen`` equal, the BN
   running stats after the pass within rtol = atol = 1e-4 (measured
@@ -114,39 +123,61 @@ def _assert_stats_match(engine, jax_stats, tol):
                                    err_msg=k)
 
 
-def test_train_epoch_matches_jax(jax_variables, scene_data):
+@pytest.fixture(scope="module")
+def jax_epoch(jax_variables, scene_data):
     jeng = _jax_engine(jax_variables)
     jstate, jm = jeng.train_epoch(jeng.init_state(),
                                   jeng.put_data(scene_data), IDX, VALID,
                                   CAPTURE)
+    params = torch_import.state_dict_from_jax_variables(
+        {"params": jax.tree_util.tree_map(np.asarray, jstate.params)})
+    return int(jstate.step), params, jax.tree_util.tree_map(np.asarray, jm)
+
+
+def _check_train_epoch(jax_variables, scene_data, jax_epoch):
+    j_step, want, jm = jax_epoch
     eng = _port_engine(jax_variables)
     m = eng.train_epoch(eng.put_data(scene_data), IDX, VALID, CAPTURE)
 
-    j_loss = np.asarray(jm["loss"])
+    j_loss = jm["loss"]
     loss = m["loss"].numpy()
     np.testing.assert_allclose(loss[0], j_loss[0], rtol=1e-5)
-    np.testing.assert_allclose(loss[1], j_loss[1], rtol=1e-3)
+    np.testing.assert_allclose(loss[1], j_loss[1], rtol=1e-2)
     np.testing.assert_allclose(loss, j_loss, rtol=8e-2)
     np.testing.assert_array_equal(m["skipped_nan"].numpy(),
-                                  np.asarray(jm["skipped_nan"]))
-    assert eng.step == int(jstate.step) == 3
+                                  jm["skipped_nan"])
+    assert eng.step == j_step == 3
     assert m["reprojection"].shape == m["disparity"].shape == (3, 2)
 
-    want = torch_import.state_dict_from_jax_variables(
-        {"params": jax.tree_util.tree_map(np.asarray, jstate.params)})
     got = {k: p.detach().numpy() for k, p in eng.params.items()}
     assert got.keys() == want.keys()
     va = np.concatenate([np.ravel(got[k]) for k in sorted(want)])
     vb = np.concatenate([np.ravel(want[k]) for k in sorted(want)])
     assert np.linalg.norm(va - vb) / np.linalg.norm(vb) < 5e-2
 
-    cap, j_cap = m["captured_depth"], np.asarray(jm["captured_depth"])
+    cap, j_cap = m["captured_depth"], jm["captured_depth"]
     assert cap.shape == j_cap.shape == (TrainingEngine.CAPTURE_SLOTS, 2, 2,
                                         H, W)
     assert cap.dtype == torch.float32
     assert _rel(cap[0].numpy(), j_cap[0]) < 1e-4
     # slot 1 holds step 2's depths, the other slots stay empty
     assert bool((cap[1] > 0).all()) and not bool(cap[2:].any())
+
+
+def test_train_epoch_matches_jax(jax_variables, scene_data, jax_epoch):
+    _check_train_epoch(jax_variables, scene_data, jax_epoch)
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_train_epoch_matches_jax_at_threads(jax_variables, scene_data,
+                                            jax_epoch, threads):
+    """The same bands at other torch thread counts, which move the port's
+    step-1 gap (the module runs at 2)."""
+    torch.set_num_threads(threads)
+    try:
+        _check_train_epoch(jax_variables, scene_data, jax_epoch)
+    finally:
+        torch.set_num_threads(2)
 
 
 def _eval_case(jax_variables, scene_data, dedup, idx, valid):

@@ -67,7 +67,8 @@ def test_port_imports_without_jax():
               "pipeline.video", "pipeline.colmap_processor",
               "pipeline.scale_calibration", "pipeline.make_video",
               "pipeline.process", "cli.params", "cli.main", "__main__",
-              "parallel", "parallel.mesh"):
+              "parallel", "parallel.mesh", "ops.geometry_np",
+              "utils.calibration", "utils.depth_alignment"):
         assert "consistent_depth_tpu_torch." + m in mods
     assert JAX_FREE_HELPERS == []
     proc = _forbidden_after(
