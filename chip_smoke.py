@@ -7,9 +7,11 @@ its plain PyTorch version:
 
 - eval-mode MannequinChallenge depth serving through
   ``consistent_depth_tpu_torch.serving.DepthServer`` on 224x384 frames
-  (kernels: ``csrc/same_conv_tc.cu`` for bf16 and ``csrc/same_conv_tf32.cu``
-  for f32, both on the tensor cores; ``csrc/same_conv.cu``, the FMA
-  template, for the shapes they do not take);
+  (kernels: ``csrc/same_conv_wgmma.cu`` for bf16, on wgmma with TMA, and
+  ``csrc/same_conv_tf32.cu`` for f32; ``csrc/same_conv_tc.cu``, the earlier
+  bf16 design on mma.sync, for the bf16 reductions loaded by element;
+  ``csrc/same_conv.cu``, the FMA template, for the shapes none of them
+  take);
 - full FlowNet2 optical flow (C->S->S + SD + fusion) in f32 through
   ``consistent_depth_tpu_torch.flow.runner.TorchFlowBackend`` at the flow
   stage's 448x1024 feed, then the flow stage's masks and visualisation
@@ -45,7 +47,10 @@ Phases, each printing one JSON line:
    batch-8 forward at 224x384), the kernel of the plan's route against
    ``same_conv_reference`` in f32 (TF32 off) and bf16, both times from
    CUDA events (in f32 also the FMA template's, the design the 3xTF32
-   kernel replaced), the class's GFLOP, its bound by route (the larger of
+   kernel replaced; in bf16 also the other tensor-core kernel's on the
+   same inputs, "tc" beside "wgmma" and "wgmma" beside "tc" where it takes
+   the class, checked against plain too), the class's GFLOP, its bound by
+   route (the larger of
    its operations over the route's peak and its bytes over 3.35 TB/s; f32
    rows give the 3xTF32 and the FMA bound), TFLOP/s and share of the
    bound; then, untimed, ragged cases (1x7x13 k=11 64->16, 2x14x24
@@ -80,10 +85,14 @@ Phases, each printing one JSON line:
    train step sends through ``same_conv_grad_input``, the kernel of the
    plan's route against ``same_conv_grad_input_reference`` in f32 (TF32
    off) and bf16, its time, the plain version's and cuDNN's dgrad's from
-   CUDA events (f32: the FMA template's too), and the numbers of phase 3;
+   CUDA events (f32: the FMA template's too; bf16: the other tensor-core
+   kernel's), and the numbers of phase 3;
 8. train: the workload resident on the card; 68 forward and 67 grad-input
-   launches per step, by the routes the plan gives; a finite loss and a
-   finite gradient for every parameter (non-zero except the confidence
+   launches per step, by the routes the plan gives (bf16: 60 and 60 on
+   "wgmma"; on "tc" the stem's forward and the merged heads' grad-input,
+   whose 3- and 2-channel reductions TMA cannot load, and the classes of
+   16 output or reduction channels, which "tc" ran faster); a finite loss
+   and a finite gradient for every parameter (non-zero except the confidence
    head's, which the loss does not read); the f32 step with the kernels
    against the same step with their plain versions; the f32 step on the
    card against the CPU at
@@ -197,7 +206,10 @@ Phases, each printing one JSON line:
 
 Then the card's name and power limit as nvidia-smi prints them, a
 ``{"kernels": [...]}`` line, whose launches add up each path's run
-(``launches_by_path`` splits them): for the conv's mc entries one phase-9
+(``launches_by_path`` splits them), one entry per route and direction (a
+bf16 "tc" or "wgmma" entry holds its times on every bf16 class it was
+timed on, the plan's or beside it, and the launches the plan gave it):
+for the conv's mc entries one phase-9
 epoch per precision, phase 11, phase 14's mesh ranks (``mesh``) and
 phase 15's forwards (``aux``), with the times of mc's classes; for each
 backbone's entries (``same_conv_midas2``, ...) its timed steps and CLI run,
@@ -242,10 +254,11 @@ PEAK_TFLOPS = {"bf16": 989.0, "tf32": 495.0, "f32": 67.0}
 HBM_BYTES_PER_S = 3.35e12
 # each conv route's peak and its operations per FLOP of the conv: the
 # 3xTF32 kernel does three TF32 products for each product
-ROUTE_PEAK = {"tc": ("bf16", 1), "tf32": ("tf32", 3), "fma": ("f32", 1)}
+ROUTE_PEAK = {"tc": ("bf16", 1), "tf32": ("tf32", 3), "fma": ("f32", 1),
+              "wgmma": ("bf16", 1)}
 CONV_SOURCES = {r: f"consistent_depth_tpu_torch/csrc/{f}" for r, f in (
     ("tc", "same_conv_tc.cu"), ("tf32", "same_conv_tf32.cu"),
-    ("fma", "same_conv.cu"))}
+    ("fma", "same_conv.cu"), ("wgmma", "same_conv_wgmma.cu"))}
 # bf16 server against f32 server: relative L2 error of the depth, the band
 # of the JAX package's bf16 test (tests/test_bf16.py)
 TOL_SERVE_BF16 = 0.05
@@ -507,6 +520,36 @@ def conv_bound(direction, N, H, W, k, Ci, Co, elem_bytes, route):
 
 
 @contextmanager
+def forced_route(s2d_conv, route):
+    """The conv wrappers take the tensor-core ``route`` ("tc" or "wgmma",
+    with the route's own tile and split) for every bf16 shape inside the
+    block: the other bf16 kernel, timed beside the plan's on the same
+    inputs."""
+    orig = s2d_conv._plan
+    s2d_conv._plan = lambda *args, **kwargs: orig(*args, route=route,
+                                                  **kwargs)
+    try:
+        yield
+    finally:
+        s2d_conv._plan = orig
+
+
+def other_bf16_route(torch, s2d_conv, route, N, H, W, Ci, Co, k, grad):
+    """The bf16 tensor-core route to run beside the plan's ``route``: "tc"
+    beside "wgmma" (the design it replaced), "wgmma" beside "tc" where it
+    takes the class (the classes that "tc" ran faster); else None."""
+    if route == "wgmma":
+        return "tc"
+    red, out = (Co, Ci) if grad else (Ci, Co)
+    if route == "tc" and s2d_conv._wgmma_takes(
+            torch.bfloat16, red, out, grad) and s2d_conv.wgmma_fits(
+                k, min(s2d_conv.TILE_HEIGHTS), red,
+                s2d_conv.wgmma_co_block(out)):
+        return "wgmma"
+    return None
+
+
+@contextmanager
 def fma_route(s2d_conv):
     """The conv wrappers take the FMA template (csrc/same_conv.cu) for
     every shape inside the block: the design the tensor-core kernels
@@ -529,7 +572,11 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
     inputs, the bound of the route (f32: both the 3xTF32 and the FMA
     bound), and when ``timed`` the times of the kernel, the plain version,
     (grad-input) cuDNN's dgrad and (f32) the FMA template from CUDA
-    events."""
+    events. In bf16 the other tensor-core kernel runs on the same inputs
+    too (``bf16["tc"]`` where the plan gives "wgmma", ``bf16["wgmma"]``
+    where it gives "tc" and "wgmma" takes the class: its error against
+    plain, which the band holds as well, and when ``timed`` its time);
+    ``bf16["tc_ms"]`` is the "tc" kernel's time whatever the route."""
     N, H, W, C = ashape
     k, _, Ci, Co = wshape
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -581,6 +628,22 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
         rel = err / max(ref.abs().max().item(), 1e-30)
         route, tile_h, split = s2d_conv._plan(dt, N, H, W, Ci, Co, k,
                                               grad_input=grad)
+        alt_route = (other_bf16_route(torch, s2d_conv, route, N, H, W, Ci,
+                                      Co, k, grad)
+                     if name == "bf16" else None)
+        alt = None
+        if alt_route is not None:
+            with forced_route(s2d_conv, alt_route):
+                alt_err = (kernel().float() - ref).abs().max().item()
+                alt_plan = s2d_conv._plan(dt, N, H, W, Ci, Co, k,
+                                          grad_input=grad)
+                alt = {"tile_h": alt_plan[1], "split": alt_plan[2],
+                       "max_abs_err": alt_err,
+                       "max_rel_err": alt_err / max(
+                           ref.abs().max().item(), 1e-30)}
+                if timed:
+                    alt["ms"] = (cuda_ms(torch, kernel)
+                                 + cuda_ms(torch, kernel)) / 2
         gflop, bound_ms, bound_by = conv_bound(
             direction, N, H, W, k, Ci, Co, ad.element_size(), route)
         r = {"route": route, "tile_h": tile_h, "split": split,
@@ -604,6 +667,12 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
                                 + cuda_ms(torch, library)) / 2)
             r["tflops"] = gflop / r["ms"]
             r["bound_share"] = bound_ms / r["ms"]
+            if name == "bf16":
+                r["tc_ms"] = alt["ms"] if alt_route == "tc" else r["ms"]
+        if alt is not None:
+            r[alt_route] = alt
+            ok = ok and math.isfinite(alt["max_rel_err"]) and (
+                alt["max_rel_err"] <= tol)
         row[name] = r
         ok = ok and math.isfinite(rel) and rel <= tol
     row["gflop"] = gflop
@@ -612,9 +681,10 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
 
 
 # the timed numbers of a class that add up over classes; f32 rows carry
-# the FMA template's time and both bounds as well
+# the FMA template's time and both bounds as well, bf16 rows the "tc"
+# kernel's time
 SUMMED = ("ms", "plain_ms", "library_ms", "bound_ms", "fma_ms",
-          "bound_ms_3xtf32", "bound_ms_fma")
+          "bound_ms_3xtf32", "bound_ms_fma", "tc_ms")
 
 
 def conv_totals(rows, count_key):
@@ -632,25 +702,42 @@ def conv_totals(rows, count_key):
     return totals
 
 
+def route_view(row, dt, route):
+    """The numbers of ``route`` on one class in ``dt``: the plan's route's,
+    or, in bf16, those of the other tensor-core kernel timed beside it on
+    the same inputs (with the class's plain, library and bound times);
+    None where ``route`` did not run on the class."""
+    r = row[dt]
+    if r["route"] == route:
+        return r
+    if route in ("tc", "wgmma") and route in r:
+        return {**r, **r[route], "route": route}
+    return None
+
+
 def conv_entry(name, replaces, launches, rows, count_key, dt, route):
-    """One entry of the ``kernels`` line, or None where the plan gives
-    ``route`` no class of ``rows`` in ``dt``: those classes' times and
-    bounds summed with their counts (ms, the plain version's, the library
+    """One entry of the ``kernels`` line, or None where ``route`` ran on no
+    class of ``rows`` in ``dt``: the times and bounds of the classes it ran
+    on, summed with their counts (ms, the plain version's, the library
     call's: cuDNN's fprop for the forward, whose plain version it is, and
     its dgrad for the grad-input; f32: the FMA template's ms and both
-    bounds), the largest error against plain."""
-    mine = [r for r in rows if r[dt]["route"] == route]
+    bounds), the largest error against plain. In bf16 "tc" and "wgmma"
+    each run on every class that either takes (the other timed beside the
+    plan's); ``launches`` are the plan's."""
+    mine = [(r, v) for r in rows
+            if (v := route_view(r, dt, route)) is not None]
     if not mine:
         return None
     by = Counter()
-    for r in mine:
-        by[r[dt]["bound_by"]] += r[dt]["bound_ms"] * r[count_key]
+    for r, v in mine:
+        by[v["bound_by"]] += v["bound_ms"] * r[count_key]
     entry = {"name": name, "route": "cuda", "source": CONV_SOURCES[route],
              "replaces": replaces, "launches": launches,
-             "max_abs_err": max(r[dt]["max_abs_err"] for r in mine)}
+             "classes": len(mine),
+             "max_abs_err": max(v["max_abs_err"] for _, v in mine)}
     for key in SUMMED:
-        if key in mine[0][dt]:
-            entry[key] = sum(r[dt][key] * r[count_key] for r in mine)
+        if key in mine[0][1]:
+            entry[key] = sum(v[key] * r[count_key] for r, v in mine)
     entry["bound_by"] = by.most_common(1)[0][0]
     return entry
 
@@ -3492,9 +3579,10 @@ def main() -> int:
     # batch-8 forward (phase 3) or per train step (phase 7). Each
     # backbone's entries (same_conv_<name>...): its timed train steps (by
     # precision) and CLI run (f32) of phases 12-13, with the times of its
-    # own classes per batch-8 forward or per step. One entry per route the
-    # plan gives a class of the path (the FMA template, for the shapes the
-    # tensor-core kernels do not take, has none at present)
+    # own classes per batch-8 forward or per step. One entry per route that
+    # ran on a class of the path: the plan's routes, and in bf16 the "tc"
+    # kernel timed beside "wgmma" (the FMA template, for the shapes the
+    # tensor-core kernels do not take, has no class at present)
     conv_tpu = "consistent_depth_tpu/ops/s2d_conv.py:168"
     vjp_tpu = "consistent_depth_tpu/models/layers.py:321"
     def mc_runs(dt, key):
@@ -3519,7 +3607,7 @@ def main() -> int:
         for dt in ("bf16", "f32"):
             for route in s2d_conv.ROUTES:
                 suffix = path + ("" if dt == "bf16" else "_f32") + (
-                    "_fma" if route == "fma" else "")
+                    f"_{route}" if route in ("fma", "wgmma") else "")
                 for name, key, rows_of, count_key, replaces in (
                         ("same_conv", "forward_", fwd_rows, fwd_key,
                          conv_tpu),

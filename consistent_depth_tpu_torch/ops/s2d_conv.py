@@ -8,28 +8,39 @@ the MXU's 128 lanes (``consistent_depth_tpu/models/layers.py``, the
 space-to-depth section). Hopper has no 128-lane constraint, so the port's
 CUDA kernels compute the conv directly, with no relayout. Its routes:
 
-- ``"tc"``, ``csrc/same_conv_tc.cu``: bf16 on the tensor cores, an implicit
-  GEMM (``mma.sync`` fed by ``ldmatrix`` from a halo tile that
-  ``cp.async`` stages in shared memory; the machinery is
-  ``csrc/same_conv_tc.cuh``);
+- ``"wgmma"``, ``csrc/same_conv_wgmma.cu``: bf16 on Hopper's warpgroup
+  tensor-core instruction (``wgmma.mma_async``, A from registers read by
+  ``ldmatrix`` from a halo tile, B from shared memory), with the weights and
+  the halo tile fed by TMA through an mbarrier ring, a producer warp apart
+  from the consumer warpgroups;
+- ``"tc"``, ``csrc/same_conv_tc.cu``: the earlier bf16 design, an implicit
+  GEMM on ``mma.sync`` fed by ``ldmatrix`` from a halo tile that
+  ``cp.async`` stages in shared memory (the machinery is
+  ``csrc/same_conv_tc.cuh``); it keeps the bf16 convs whose reduction is
+  loaded by element (the stem's 3 input channels, the merged heads'
+  2-channel cotangent), which TMA's 16-byte strides cannot take, and
+  those of 16 output or reduction channels, where it ran faster on the
+  card (``WGMMA_THIN``);
 - ``"tf32"``, ``csrc/same_conv_tf32.cu``: f32 (the fine-tune's default
-  precision) on the tensor cores, the same implicit GEMM with every
+  precision) on the tensor cores, the ``"tc"`` implicit GEMM with every
   product split into three TF32 products (3xTF32), which keeps f32's
   accuracy;
 - ``"fma"``, ``csrc/same_conv.cu``: a direct conv on the FMA pipes, for
   the shapes the tensor-core kernels do not take.
 
 :func:`_plan` picks the route, the tile and the split of the reduction for
-one call. Layouts are the JAX package's: x NHWC ``(N, H, W, Ci)``, w HWIO
-``(k, k, Ci, Co)``, out NHWC ``(N, H, W, Co)`` in x's dtype. Any strides are
-accepted, so channels_last activations and OIHW weights pass in as permuted
-views without a copy; the tensor-core routes copy a tensor whose channels
-are not contiguous or 16-byte aligned, and count the copy.
+one call, from the shapes alone. Layouts are the JAX package's: x NHWC
+``(N, H, W, Ci)``, w HWIO ``(k, k, Ci, Co)``, out NHWC ``(N, H, W, Co)`` in
+x's dtype. Any strides are accepted, so channels_last activations and OIHW
+weights pass in as permuted views without a copy; the tensor-core routes
+copy a tensor whose channels are not contiguous or 16-byte aligned, and
+count the copy.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -49,8 +60,43 @@ TILE_W = 16
 TILE_HEIGHTS = (16, 8, 4)
 MAX_CO_BLOCK = {torch.bfloat16: 64, torch.float32: 32}
 CHUNK = {torch.bfloat16: 16, torch.float32: 8}
+# the "wgmma" kernel's output-channel blocks (wgmma's N) and reduction
+# chunks (16, 32 or 64 channels, each tap of a chunk one stage of its
+# ring); the 16-row tile holds two m64 tiles per consumer warpgroup, which
+# the registers allow for blocks of up to 64 channels
+WGMMA_CO_BLOCKS = (16, 32, 64, 128)
+WGMMA_CHUNKS = (16, 32, 64)
+WGMMA_TALL_MAX_CO_BLOCK = 64
+# its shared memory: the halo tiles (two where the reduction has more
+# than one chunk), a ring of weight stages (one tap each, at most 24), each
+# rounded to the 1024-byte swizzle repeat, the barriers and the alignment;
+# at most what one block may have (227 KB). A consumer holds a commit
+# group's taps (four k16 steps: 64 / chunk taps) while it waits for the
+# next group's, so the ring needs two groups
+WGMMA_SMEM = 232448
+WGMMA_ALIGN = 1024
+WGMMA_GROUP_STEPS = 4
+WGMMA_MAX_STAGES = 24
+# bf16 classes that "tc" ran faster than "wgmma" on the card, which take
+# "tc": an output-channel block of 16 (wgmma's N = 16, where each m64n16k16
+# reads as many A bytes from shared memory as an m64n64k16) or a reduction
+# of 16 channels (one k16 step a tap). The card's times, device time alone
+# (tools/torch_conv_wgmma.py, NVIDIA H100 80GB HBM3, 700.00 W), "wgmma"
+# against "tc", in us, of mc's classes at batch 8 (x, then w as k, Ci->Co):
+#   forward 224x384x64, 11 64->16: 984.9 / 748.0; 7 64->16: 438.1 / 345.3;
+#     3 64->16: 135.7 / 100.2; 3 64->2: 136.7 / 99.9;
+#   forward 112x192x32, 11 32->16: 202.9 / 111.2; 7 32->16: 92.8 / 54.6;
+#     3 32->16: 31.9 / 17.8;
+#   grad-input 224x384x16, 11 64->16: 597.4 / 497.9; 7 64->16: 306.4 /
+#     280.3; 3 64->16: 156.9 / 118.9;
+#   grad-input 112x192x16, 11 32->16: 158.1 / 84.9; 7 32->16: 75.8 / 40.1;
+#     3 32->16: 31.7 / 14.2.
+# Every other class of mc, midas2 and monodepth2 ran faster on "wgmma" or
+# within a few us of "tc" (PERF.md section 6).
+WGMMA_THIN = 16
 # the routes (module docstring), and the tensor-core route of each dtype
-ROUTES = ("tc", "tf32", "fma")
+# for what "wgmma" does not take
+ROUTES = ("tc", "tf32", "fma", "wgmma")
 _TC_ROUTE = {torch.bfloat16: "tc", torch.float32: "tf32"}
 # an H100 SXM's streaming multiprocessors; a grid below two blocks per SM
 # leaves the card under-filled
@@ -91,39 +137,124 @@ def _unit(dtype: torch.dtype) -> int:
     return 16 // dtype.itemsize
 
 
+def wgmma_co_block(channels: int) -> int:
+    """The "wgmma" kernel's output-channel block (wgmma's N) for
+    ``channels`` output channels."""
+    return next((b for b in WGMMA_CO_BLOCKS[:-1] if channels <= b),
+                WGMMA_CO_BLOCKS[-1])
+
+
+def wgmma_chunk(channels: int, k: int = 1, split: int = 1) -> int:
+    """The "wgmma" kernel's reduction channels per chunk for a reduction
+    over ``channels`` with k x k taps, as its source picks it: the fewest of
+    WGMMA_CHUNKS that hold the reduction, halved while a split over
+    ``split`` blocks would find fewer steps (a chunk by a tap row)."""
+    chunk = next((c for c in WGMMA_CHUNKS[:-1] if channels <= c),
+                 WGMMA_CHUNKS[-1])
+    while chunk > WGMMA_CHUNKS[0] and math.ceil(channels / chunk) * k < split:
+        chunk //= 2
+    return chunk
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def wgmma_fits(k: int, tile_h: int, red: int, cob: int) -> bool:
+    """Whether ``csrc/same_conv_wgmma.cu``'s shared memory holds the halo
+    tiles of ``tile_h`` + k - 1 rows by TILE_W + k - 1 columns of a chunk
+    of bf16 channels of a reduction over ``red`` and a ring of two commit
+    groups' weight stages, and of a tap row's k (the producer fills a row
+    at once), for an output-channel block ``cob``."""
+    chunk = wgmma_chunk(red)
+    halo = _round_up((tile_h + k - 1) * (TILE_W + k - 1) * chunk * 2,
+                     WGMMA_ALIGN)
+    stage = _round_up(chunk * cob * 2, WGMMA_ALIGN)
+    halos = 2 if red > chunk else 1
+    fixed = WGMMA_ALIGN + halos * halo + 32 + 16 * WGMMA_MAX_STAGES
+    taps_per_group = WGMMA_GROUP_STEPS // (chunk // 16)
+    return (WGMMA_SMEM - fixed) // stage >= max(2 * taps_per_group, k)
+
+
+def _wgmma_takes(dtype: torch.dtype, red: int, out: int,
+                 grad_input: bool) -> bool:
+    """Whether the "wgmma" kernel takes a conv reducing over ``red`` into
+    ``out`` channels: bf16, the reduction a whole number of 16-byte units
+    (TMA's strides), and a grad-input's output channels too (the weight's
+    contiguous dimension there)."""
+    unit = _unit(dtype)
+    return (dtype == torch.bfloat16 and red % unit == 0
+            and (not grad_input or out % unit == 0))
+
+
+@functools.lru_cache(maxsize=4096)
 def _plan(dtype: torch.dtype, N: int, H: int, W: int, Ci: int, Co: int,
-          k: int, grad_input: bool = False) -> Tuple[str, int, int]:
+          k: int, grad_input: bool = False,
+          route: Optional[str] = None) -> Tuple[str, int, int]:
     """``(route, tile_h, split)`` for one conv on the card: the forward of
     x (N, H, W, Ci) with w (k, k, Ci, Co), or with ``grad_input`` its
     grad-input, a conv reducing over Co into Ci channels.
 
-    Each dtype takes its tensor-core route (bf16 "tc", f32 "tf32"), except
-    a grad-input into a number of channels that is not a whole number of
-    16-byte units, 8 bf16 or 4 f32 (the kernels copy its weight in units
-    along them): that takes the FMA template ("fma", tile and split
-    unused). The tile is the tallest of 16, 8, 4 rows that gives at least
+    bf16 takes "wgmma" wherever it can (:func:`_wgmma_takes`, and a tile
+    that :func:`wgmma_fits`) but where "tc" ran faster on the card (16 or
+    fewer output or reduction channels, WGMMA_THIN), else "tc", which also
+    loads a reduction of a channel count that is not a whole number of
+    16-byte units by element (the stem's 3, the merged heads' 2); f32
+    takes "tf32". A grad-input into a number of channels that is not a
+    whole number of 16-byte units, 8 bf16 or 4 f32 (the kernels copy its
+    weight in units along them), takes the FMA template ("fma", tile and
+    split unused). ``route`` names a tensor-core route to plan instead
+    (the card's check times the two bf16 kernels on the same inputs).
+
+    The tile is the tallest of 16, 8, 4 rows that gives at least
     MIN_BLOCKS blocks (16 only from twice that, so that the taller tile,
     which re-reads less halo and weight per output, still leaves each SM a
-    few blocks); where even 4 rows give fewer, the reduction's steps
-    (CHUNK[dtype] channels by one tap row) are split over blocks, up to
-    MIN_BLOCKS blocks."""
+    few blocks); "wgmma" takes 16 rows only for output-channel blocks of up
+    to WGMMA_TALL_MAX_CO_BLOCK and a tile only where :func:`wgmma_fits`.
+    Where even 4 rows give fewer blocks, the reduction's steps (a chunk of
+    channels by one tap row: CHUNK[dtype] for "tc" and "tf32",
+    :func:`wgmma_chunk` for "wgmma", which halves its chunk for more steps)
+    are split over blocks, up to MIN_BLOCKS blocks."""
     red, out = (Co, Ci) if grad_input else (Ci, Co)
-    if grad_input and out % _unit(dtype):
-        return "fma", 0, 1
-    route = _TC_ROUTE[dtype]
-    per_row = math.ceil(W / TILE_W) * N * math.ceil(
-        out / co_block(out, dtype))
+    if route is None:
+        if grad_input and out % _unit(dtype):
+            return "fma", 0, 1
+        route = ("wgmma" if _wgmma_takes(dtype, red, out, grad_input)
+                 and min(red, out) > WGMMA_THIN
+                 and wgmma_fits(k, min(TILE_HEIGHTS), red,
+                                wgmma_co_block(out))
+                 else _TC_ROUTE[dtype])
+    elif route == "wgmma" and not _wgmma_takes(dtype, red, out, grad_input):
+        raise ValueError(f"_plan: wgmma does not take {dtype} reducing "
+                         f"{red} into {out} channels")
+    elif route not in ("wgmma", _TC_ROUTE[dtype]):
+        raise ValueError(f"_plan: route {route!r} is not a tensor-core "
+                         f"route of {dtype}")
+    if route == "wgmma":
+        cob = wgmma_co_block(out)
+        heights = [th for th in TILE_HEIGHTS
+                   if (th < 16 or cob <= WGMMA_TALL_MAX_CO_BLOCK)
+                   and wgmma_fits(k, th, red, cob)]
+        if not heights:
+            raise ValueError(f"_plan: no wgmma tile fits k={k} reducing "
+                             f"{red} into {out} channels")
+    else:
+        cob = co_block(out, dtype)
+        heights = list(TILE_HEIGHTS)
+    per_row = math.ceil(W / TILE_W) * N * math.ceil(out / cob)
 
     def blocks(th):
         return math.ceil(H / th) * per_row
 
-    if blocks(16) >= 2 * MIN_BLOCKS:
+    if 16 in heights and blocks(16) >= 2 * MIN_BLOCKS:
         return route, 16, 1
-    for th in TILE_HEIGHTS[1:]:
-        if blocks(th) >= MIN_BLOCKS:
+    for th in (8, 4):
+        if th in heights and blocks(th) >= MIN_BLOCKS:
             return route, th, 1
-    steps = math.ceil(red / CHUNK[dtype]) * k
-    return route, 4, min(steps, math.ceil(MIN_BLOCKS / blocks(4)))
+    want = math.ceil(MIN_BLOCKS / blocks(4))
+    chunk = (wgmma_chunk(red, k, want) if route == "wgmma"
+             else CHUNK[dtype])
+    return route, 4, min(math.ceil(red / chunk) * k, want)
 
 
 def _tc_ready(t: torch.Tensor, contiguous_dim: int, by_element: bool

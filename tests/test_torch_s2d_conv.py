@@ -8,7 +8,10 @@ reach both packages as the same values. Tolerance: f32, rtol = atol = 2e-5
 summation order.
 """
 
+import ctypes
 import math
+import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -19,7 +22,8 @@ import jax.numpy as jnp
 from consistent_depth_tpu.models import layers as jax_layers
 from consistent_depth_tpu.ops.s2d_conv import s2d_conv_pallas
 from consistent_depth_tpu_torch.models import hourglass, layers
-from consistent_depth_tpu_torch.ops import s2d_conv
+from consistent_depth_tpu_torch.models.registry import get_depth_model
+from consistent_depth_tpu_torch.ops import _cuda, s2d_conv
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -150,7 +154,42 @@ def _split_ranges(steps, split):
 
 
 # each dtype's tensor-core route and reduction channels per step (32 bytes)
+# for the reductions that "wgmma" does not take
 TC_ROUTES = {torch.bfloat16: ("tc", 16), torch.float32: ("tf32", 8)}
+
+
+def _check_plan(plan, dtype, N, H, W, Ci, Co, k, grad):
+    """A plan's tiles cover the output, its output-channel blocks the
+    output channels, and a split's ranges every reduction step once, with
+    at least MIN_BLOCKS blocks; "wgmma" tiles fit its shared memory and
+    take 16 rows only for blocks of up to 64 channels."""
+    route, th, split = plan
+    assert th in s2d_conv.TILE_HEIGHTS
+    red, out = (Co, Ci) if grad else (Ci, Co)
+    rows, cols = math.ceil(H / th), math.ceil(W / s2d_conv.TILE_W)
+    assert (rows - 1) * th < H <= rows * th
+    assert (cols - 1) * s2d_conv.TILE_W < W <= cols * s2d_conv.TILE_W
+    if route == "wgmma":
+        cob = s2d_conv.wgmma_co_block(out)
+        chunk = s2d_conv.wgmma_chunk(red, k, split)
+        assert cob in s2d_conv.WGMMA_CO_BLOCKS
+        assert th < 16 or cob <= s2d_conv.WGMMA_TALL_MAX_CO_BLOCK
+        assert s2d_conv.wgmma_fits(k, th, red, cob)
+        assert chunk * 2 in (32, 64, 128)   # the swizzle widths TMA has
+    else:
+        cob = s2d_conv.co_block(out, dtype)
+        assert cob <= s2d_conv.MAX_CO_BLOCK[dtype]
+        chunk = s2d_conv.CHUNK[dtype]
+    co_blocks = math.ceil(out / cob)
+    assert (co_blocks - 1) * cob < out <= co_blocks * cob
+    steps = math.ceil(red / chunk) * k
+    assert 1 <= split <= steps
+    ranges = _split_ranges(steps, split)
+    assert [s for r in ranges for s in r] == list(range(steps))
+    assert all(len(r) for r in ranges)
+    assert rows * cols * N * co_blocks * split >= s2d_conv.MIN_BLOCKS
+    if split > 1:
+        assert th == min(s2d_conv.TILE_HEIGHTS)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -158,39 +197,36 @@ TC_ROUTES = {torch.bfloat16: ("tc", 16), torch.float32: ("tf32", 8)}
 @pytest.mark.parametrize("direction", ["forward", "grad_input"])
 def test_plan_routes_hourglass_classes(direction, dtype):
     """For every conv class of one batch-8 forward at 224x384 (68 calls)
-    and of its backward (67 grad-inputs: the stem's input needs none), each
-    dtype takes its tensor-core route, bf16 "tc" and f32 "tf32" (the stem's
-    3 input channels and the merged heads' 2-channel cotangent too), with
-    steps of 16 bf16 or 8 f32 reduction channels. A plan's tiles cover the
-    output, and a split's ranges cover every reduction step once, with at
-    least MIN_BLOCKS blocks."""
+    and of its backward (67 grad-inputs: the stem's input needs none), bf16
+    takes "wgmma" but where its reduction is loaded by element (the stem's
+    3 input channels, the merged heads' 2-channel cotangent) or it has 16
+    output or reduction channels (WGMMA_THIN: "tc" ran faster there on the
+    card): "tc", with steps of 16 channels; f32 takes "tf32" (steps of 8
+    channels). A plan's tiles cover the output, and a split's ranges cover
+    every reduction step once, with at least MIN_BLOCKS blocks."""
     calls = _hourglass_calls()
     assert len(calls) == 68
     grad = direction == "grad_input"
     if grad:
         calls = calls[1:]
-    want_route, chunk = TC_ROUTES[dtype]
+    tc_route, chunk = TC_ROUTES[dtype]
     assert s2d_conv.CHUNK[dtype] == chunk
+    routes = []
     for (N, H, W, Ci), (k, _, _, Co) in calls:
-        route, th, split = s2d_conv._plan(dtype, N, H, W, Ci, Co, k,
-                                          grad_input=grad)
-        assert route == want_route and th in s2d_conv.TILE_HEIGHTS
+        plan = s2d_conv._plan(dtype, N, H, W, Ci, Co, k, grad_input=grad)
         red, out = (Co, Ci) if grad else (Ci, Co)
-        rows, cols = math.ceil(H / th), math.ceil(W / s2d_conv.TILE_W)
-        assert (rows - 1) * th < H <= rows * th
-        assert (cols - 1) * s2d_conv.TILE_W < W <= cols * s2d_conv.TILE_W
-        cob = s2d_conv.co_block(out, dtype)
-        assert cob <= s2d_conv.MAX_CO_BLOCK[dtype]
-        co_blocks = math.ceil(out / cob)
-        assert co_blocks * cob >= out
-        steps = math.ceil(red / chunk) * k
-        assert 1 <= split <= steps
-        ranges = _split_ranges(steps, split)
-        assert [s for r in ranges for s in r] == list(range(steps))
-        assert all(len(r) for r in ranges)
-        assert rows * cols * N * co_blocks * split >= s2d_conv.MIN_BLOCKS
-        if split > 1:
-            assert th == min(s2d_conv.TILE_HEIGHTS)
+        narrow = red % (16 // dtype.itemsize) != 0
+        thin = min(red, out) <= s2d_conv.WGMMA_THIN
+        want = ("wgmma" if dtype == torch.bfloat16 and not narrow
+                and not thin else tc_route)
+        assert plan[0] == want
+        routes.append(plan[0])
+        _check_plan(plan, dtype, N, H, W, Ci, Co, k, grad)
+    if dtype == torch.bfloat16:
+        # forward: the stem and the seven classes into 16 or 2 channels;
+        # grad-input: the heads' and the six of a 16-channel cotangent
+        assert routes.count("tc") == (8 if not grad else 7)
+        assert routes.count("wgmma") == 60
 
 
 def test_plan_narrow_and_ragged_cases():
@@ -204,6 +240,8 @@ def test_plan_narrow_and_ragged_cases():
                           grad_input=True)[0] == "tc"
     assert s2d_conv._plan(bf16, 8, 224, 384, 3, 128, 7,
                           grad_input=True)[0] == "fma"
+    # the heads' forward reduces 64 channels into 2: "tc" ran it faster
+    # (WGMMA_THIN)
     assert s2d_conv._plan(bf16, 8, 224, 384, 64, 2, 3)[0] == "tc"
     assert s2d_conv._plan(f32, 8, 224, 384, 3, 128, 7)[0] == "tf32"
     assert s2d_conv._plan(f32, 8, 224, 384, 64, 2, 3,
@@ -216,11 +254,18 @@ def test_plan_narrow_and_ragged_cases():
                           grad_input=True)[0] == "tf32"
     assert s2d_conv._plan(bf16, 2, 64, 96, 4, 16, 3,
                           grad_input=True)[0] == "fma"
-    # 1x7x13, k=11, 64 -> 16: two 4x16 tiles, 44 steps of the reduction
-    # in bf16 (16 channels each), 88 in f32 (8 channels each)
+    # 1x7x13, k=11, 64 -> 16: two 4x16 tiles, split up to the steps of
+    # the reduction: 44 forward in bf16 (16 channels each) and 11 in the
+    # grad-input (the cotangent's 16 channels), 88 in f32 (8 channels
+    # each); 16 output channels take "tc" in bf16 (WGMMA_THIN), and
+    # "wgmma", when asked, halves its chunk of 64 for as many steps
     assert s2d_conv._plan(bf16, 1, 7, 13, 64, 16, 11) == ("tc", 4, 44)
     assert s2d_conv._plan(bf16, 1, 7, 13, 64, 16, 11, grad_input=True) == (
         "tc", 4, 11)
+    assert s2d_conv._plan(bf16, 1, 7, 13, 64, 16, 11, route="wgmma") == (
+        "wgmma", 4, 44)
+    assert s2d_conv._plan(bf16, 1, 7, 13, 64, 16, 11, grad_input=True,
+                          route="wgmma") == ("wgmma", 4, 11)
     assert s2d_conv._plan(f32, 1, 7, 13, 64, 16, 11) == ("tf32", 4, 88)
     assert s2d_conv._plan(f32, 1, 7, 13, 64, 16, 11, grad_input=True) == (
         "tf32", 4, 22)
@@ -280,8 +325,193 @@ def test_tf32_products_need_three_terms():
     assert np.abs(one - ref).max() / scale > 1e-4
 
 
+def _model_calls(name, batch=8, size=(224, 384)):
+    """The (x shape, w shape) of every same_conv call of one forward of the
+    adapter ``name`` at ``size`` (monodepth2 resizes to its 320x1024 feed),
+    traced on the meta device (shapes only)."""
+    model = object.__new__(get_depth_model(name))
+    with torch.device("meta"):
+        model.net = model._make_module()
+    model.to("meta", torch.bfloat16)
+    calls = []
+    orig = s2d_conv.same_conv
+
+    def recording(x, w, bias=None):
+        calls.append((tuple(x.shape), tuple(w.shape)))
+        return x.new_empty((*x.shape[:3], w.shape[3]))
+
+    s2d_conv.same_conv = recording
+    try:
+        with torch.no_grad():
+            model.apply(torch.empty((batch, 1, *size, 3), device="meta"))
+    finally:
+        s2d_conv.same_conv = orig
+    return calls
+
+
+# routed convs per forward: the hourglass's stem, 66 branches and merged
+# heads; midas2's transition, residual-unit and output convs; monodepth2's
+# 13 stride-1 3x3 convs of ResNet-18
+MODEL_CALLS = {"mc": 68, "midas2": 20, "monodepth2": 13}
+
+
+@pytest.mark.parametrize("direction", ["forward", "grad_input"])
+@pytest.mark.parametrize("name", sorted(MODEL_CALLS))
+def test_plan_routes_backbone_classes_bf16(name, direction):
+    """Every bf16 conv class of the three backbones at 224x384, batch 8:
+    "wgmma" for each but a reduction loaded by element ("tc": mc's stem
+    forward, its heads' grad-input), 16 output or reduction channels ("tc":
+    mc's classes that it ran faster on the card, WGMMA_THIN) and a
+    grad-input into 3 channels ("fma": mc's stem, which training never
+    needs); a "wgmma" tile covers the output in blocks that fit its shared
+    memory, a split's ranges cover every reduction step once, and the
+    blocks reach MIN_BLOCKS."""
+    calls = _model_calls(name)
+    assert len(calls) == MODEL_CALLS[name]
+    grad = direction == "grad_input"
+    routes = []
+    for (N, H, W, Ci), (k, _, _, Co) in calls:
+        plan = s2d_conv._plan(torch.bfloat16, N, H, W, Ci, Co, k,
+                              grad_input=grad)
+        routes.append(plan[0])
+        if plan[0] == "fma":
+            assert grad and Ci % 8 and plan == ("fma", 0, 1)
+            continue
+        if plan[0] == "tc":
+            red, out = (Co, Ci) if grad else (Ci, Co)
+            assert red % 8 or min(red, out) <= s2d_conv.WGMMA_THIN
+        _check_plan(plan, torch.bfloat16, N, H, W, Ci, Co, k, grad)
+    if name != "mc":
+        assert routes == ["wgmma"] * MODEL_CALLS[name]
+    else:
+        counts = Counter(routes)
+        assert counts == ({"tc": 8, "wgmma": 60} if not grad
+                          else {"fma": 1, "tc": 7, "wgmma": 60})
+
+
+# mc's bf16 classes that "tc" ran faster than "wgmma" on the card (the
+# comment above ops/s2d_conv.py's WGMMA_THIN gives both times): (direction,
+# x or ct shape, w shape)
+THIN_CLASSES = [
+    ("forward", (8, 224, 384, 64), (11, 11, 64, 16)),
+    ("forward", (8, 224, 384, 64), (7, 7, 64, 16)),
+    ("forward", (8, 224, 384, 64), (3, 3, 64, 16)),
+    ("forward", (8, 224, 384, 64), (3, 3, 64, 2)),
+    ("forward", (8, 112, 192, 32), (11, 11, 32, 16)),
+    ("forward", (8, 112, 192, 32), (7, 7, 32, 16)),
+    ("forward", (8, 112, 192, 32), (3, 3, 32, 16)),
+    ("grad_input", (8, 224, 384, 16), (11, 11, 64, 16)),
+    ("grad_input", (8, 224, 384, 16), (7, 7, 64, 16)),
+    ("grad_input", (8, 224, 384, 16), (3, 3, 64, 16)),
+    ("grad_input", (8, 112, 192, 16), (11, 11, 32, 16)),
+    ("grad_input", (8, 112, 192, 16), (7, 7, 32, 16)),
+    ("grad_input", (8, 112, 192, 16), (3, 3, 32, 16)),
+]
+
+
+@pytest.mark.parametrize("direction,ashape,wshape", THIN_CLASSES)
+def test_plan_thin_classes_take_tc(direction, ashape, wshape):
+    """The classes of 16 output or reduction channels, which "tc" ran
+    faster on the card, take "tc" in bf16; "wgmma" still takes them when
+    asked by name (the card's check of every instantiation)."""
+    N, H, W, _ = ashape
+    k, _, Ci, Co = wshape
+    grad = direction == "grad_input"
+    plan = s2d_conv._plan(torch.bfloat16, N, H, W, Ci, Co, k,
+                          grad_input=grad)
+    assert plan[0] == "tc"
+    assert plan == s2d_conv._plan(torch.bfloat16, N, H, W, Ci, Co, k,
+                                  grad_input=grad, route="tc")
+    assert s2d_conv._plan(torch.bfloat16, N, H, W, Ci, Co, k,
+                          grad_input=grad, route="wgmma")[0] == "wgmma"
+
+
+def test_plan_explicit_route():
+    """``route`` plans a named tensor-core route of the dtype (the card's
+    check times "tc" beside "wgmma" on the same inputs) and refuses one the
+    arguments cannot take."""
+    bf16 = torch.bfloat16
+    args = (bf16, 8, 112, 192, 64, 32, 7)
+    assert s2d_conv._plan(*args)[0] == "wgmma"
+    assert s2d_conv._plan(*args, route="tc") == ("tc", 16, 1)
+    assert s2d_conv._plan(*args, route="wgmma") == s2d_conv._plan(*args)
+    with pytest.raises(ValueError):
+        s2d_conv._plan(bf16, 8, 224, 384, 3, 128, 7, route="wgmma")
+    with pytest.raises(ValueError):
+        s2d_conv._plan(*args, route="tf32")
+    with pytest.raises(ValueError):
+        s2d_conv._plan(torch.float32, *args[1:], route="wgmma")
+
+
+@pytest.mark.parametrize("k,tile_h,red,cob,fits", [
+    (11, 16, 64, 16, True),    # mc's 224x384 forward: one chunk, one halo
+    (11, 16, 64, 32, True),
+    (3, 8, 256, 128, True),    # midas2's 56x96 convs: two halo buffers
+    (11, 8, 16, 64, True),     # mc's 224x384 grad-input
+    (11, 16, 256, 32, True),   # two halos of 26x26x64 leave 13 stages
+    (11, 16, 4096, 512, False),  # 64 KB stages: none beside the halos
+])
+def test_wgmma_fits(k, tile_h, red, cob, fits):
+    """The shared memory of the "wgmma" kernel as its source sizes it: the
+    halo tiles (two where the reduction has more than one chunk) and a
+    ring of two commit groups' weight stages within 227 KB."""
+    assert s2d_conv.wgmma_fits(k, tile_h, red, cob) == fits
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "int64_t": ctypes.c_int64}
+
+
+def _c_entry_argtypes(source, name):
+    """The ctypes of the parameters of the ``extern "C"`` function ``name``
+    in ``csrc/<source>``, read from its declaration."""
+    text = (_cuda.CSRC_DIR / source).read_text()
+    extern = text[text.index('extern "C" {'):]
+    m = re.search(r"int\s+" + name + r"\s*\(([^)]*)\)", extern)
+    assert m, f"{name} not declared in {source}"
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    types = [p.rsplit(" ", 1)[0].replace(" *", "*") for p in params]
+    return [_C_TYPES[t] for t in types]
+
+
+@pytest.mark.parametrize("route,source", [
+    ("wgmma", "same_conv_wgmma.cu"), ("tc", "same_conv_tc.cu"),
+    ("tf32", "same_conv_tf32.cu")])
+@pytest.mark.parametrize("direction", ["forward", "grad_input"])
+def test_routed_entries_match_argtypes(route, source, direction):
+    """ops/_cuda.py's argtypes for each routed conv entry are the
+    ``extern "C"`` declaration's parameters, in order: a pointer crosses as
+    c_void_p, an int as c_int, an int64_t as c_int64."""
+    assert route in _cuda.ROUTED_CONV_ROUTES
+    want = (_cuda.ROUTED_FORWARD_ARGTYPES if direction == "forward"
+            else _cuda.ROUTED_GRAD_INPUT_ARGTYPES)
+    assert _c_entry_argtypes(
+        source, f"same_conv_{route}_{direction}") == want
+
+
+def test_same_conv_bf16_cpu_takes_reference():
+    """A bf16 tensor on the CPU takes the plain version in both directions
+    and launches nothing, whatever route the card would take."""
+    x, w, b = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(3, 32, 24))
+    ct = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 8, 12, 24)).astype(np.float32)).to(torch.bfloat16)
+    assert s2d_conv._plan(torch.bfloat16, 2, 8, 12, 32, 24, 3)[0] == "wgmma"
+    assert s2d_conv._plan(torch.bfloat16, 2, 8, 12, 32, 24, 3,
+                          grad_input=True)[0] == "wgmma"
+    before = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    torch.testing.assert_close(s2d_conv.same_conv(x, w, b),
+                               s2d_conv.same_conv_reference(x, w, b),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        s2d_conv.same_conv_grad_input(ct, w),
+        s2d_conv.same_conv_grad_input_reference(ct, w), rtol=0, atol=0)
+    assert (s2d_conv.launches, s2d_conv.grad_input_launches) == before
+
+
 def test_cuda_counts_reset():
     s2d_conv.route_counts["forward_tc"] += 3
+    s2d_conv.route_counts["grad_input_wgmma"] += 2
     s2d_conv.launches += 1
     s2d_conv.reset_counts()
     assert s2d_conv.launches == s2d_conv.grad_input_launches == 0
