@@ -7,11 +7,12 @@ its plain PyTorch version:
 
 - eval-mode MannequinChallenge depth serving through
   ``consistent_depth_tpu_torch.serving.DepthServer`` on 224x384 frames
-  (kernels: ``csrc/same_conv_wgmma.cu`` for bf16, on wgmma with TMA, and
-  ``csrc/same_conv_tf32.cu`` for f32; ``csrc/same_conv_tc.cu``, the earlier
-  bf16 design on mma.sync, for the bf16 reductions loaded by element;
-  ``csrc/same_conv.cu``, the FMA template, for the shapes none of them
-  take);
+  (kernels: ``csrc/same_conv_wgmma.cu`` for bf16 and
+  ``csrc/same_conv_wgmma_tf32.cu`` for f32, 3xTF32, both on wgmma with TMA;
+  ``csrc/same_conv_tc.cu`` and ``csrc/same_conv_tf32.cu``, the earlier
+  designs on mma.sync, for the reductions loaded by element and the
+  classes they ran faster; ``csrc/same_conv.cu``, the FMA template, for the
+  shapes none of them take);
 - full FlowNet2 optical flow (C->S->S + SD + fusion) in f32 through
   ``consistent_depth_tpu_torch.flow.runner.TorchFlowBackend`` at the flow
   stage's 448x1024 feed, then the flow stage's masks and visualisation
@@ -47,13 +48,16 @@ Phases, each printing one JSON line:
    batch-8 forward at 224x384), the kernel of the plan's route against
    ``same_conv_reference`` in f32 (TF32 off) and bf16, both times from
    CUDA events (in f32 also the FMA template's, the design the 3xTF32
-   kernel replaced; in bf16 also the other tensor-core kernel's on the
-   same inputs, "tc" beside "wgmma" and "wgmma" beside "tc" where it takes
-   the class, checked against plain too), the class's GFLOP, its bound by
-   route (the larger of
+   kernels replaced; in each dtype also the other tensor-core kernel's on
+   the same inputs, "tc" beside "wgmma" and "tf32" beside "wgmma_tf32",
+   and the wgmma kernel beside the earlier one where it takes the class,
+   checked against plain too: f32 within 1e-4, "wgmma_tf32" within 2e-5),
+   the class's GFLOP, its bound by route (the larger of
    its operations over the route's peak and its bytes over 3.35 TB/s; f32
    rows give the 3xTF32 and the FMA bound), TFLOP/s and share of the
-   bound; then, untimed, ragged cases (1x7x13 k=11 64->16, 2x14x24
+   bound; where "wgmma_tf32" runs, its weight split against
+   ``split_tf32_reference``, bit for bit, both timed; then, untimed,
+   ragged cases (1x7x13 k=11 64->16, 2x14x24
    32->64), the stem's grad-input (2x64x96, which takes the FMA template
    in both dtypes) and every class of the train phase's 64x96 check, in
    both directions;
@@ -85,14 +89,16 @@ Phases, each printing one JSON line:
    train step sends through ``same_conv_grad_input``, the kernel of the
    plan's route against ``same_conv_grad_input_reference`` in f32 (TF32
    off) and bf16, its time, the plain version's and cuDNN's dgrad's from
-   CUDA events (f32: the FMA template's too; bf16: the other tensor-core
+   CUDA events (f32: the FMA template's too; both: the other tensor-core
    kernel's), and the numbers of phase 3;
 8. train: the workload resident on the card; 68 forward and 67 grad-input
    launches per step, by the routes the plan gives (bf16: 60 and 60 on
    "wgmma"; on "tc" the stem's forward and the merged heads' grad-input,
    whose 3- and 2-channel reductions TMA cannot load, and the classes of
-   16 output or reduction channels, which "tc" ran faster); a finite loss
-   and a finite gradient for every parameter (non-zero except the confidence
+   16 output or reduction channels, which "tc" ran faster; f32: 60 and 66
+   on "wgmma_tf32", on "tf32" the stem's forward, the heads' grad-input and
+   the seven forward classes into 16 or 2 channels, which "tf32" ran
+   faster); a finite loss and a finite gradient for every parameter (non-zero except the confidence
    head's, which the loss does not read); the f32 step with the kernels
    against the same step with their plain versions; the f32 step on the
    card against the CPU at
@@ -207,8 +213,10 @@ Phases, each printing one JSON line:
 Then the card's name and power limit as nvidia-smi prints them, a
 ``{"kernels": [...]}`` line, whose launches add up each path's run
 (``launches_by_path`` splits them), one entry per route and direction (a
-bf16 "tc" or "wgmma" entry holds its times on every bf16 class it was
-timed on, the plan's or beside it, and the launches the plan gave it):
+tensor-core entry holds its times on every class of its dtype it was
+timed on, the plan's or beside it, and the launches the plan gave it;
+``same_conv_weight_split...``, the "wgmma_tf32" weight split, its times on
+the weights of the classes the plan gives that route):
 for the conv's mc entries one phase-9
 epoch per precision, phase 11, phase 14's mesh ranks (``mesh``) and
 phase 15's forwards (``aux``), with the times of mc's classes; for each
@@ -246,6 +254,11 @@ BATCH = 8
 # an f32 reference on the same bf16-rounded inputs
 TOL_F32 = 1e-4
 TOL_BF16 = 2 ** -7
+# the "wgmma_tf32" kernel's own band: each tap row's products summed in a
+# zeroed partial keep it at a few 1e-6 of max |plain| (chaining them all
+# onto one sum, which the tensor cores add with truncation, reaches 7e-5;
+# tools/torch_conv_wgmma.py --dtype f32 --variants)
+TOL_WGMMA_TF32 = 2e-5
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 and
 # TF32 on the tensor cores, f32 on the FMA pipes, and the HBM rate; each
 # kernel's bound is the larger of its operations over the peak and its
@@ -255,10 +268,14 @@ HBM_BYTES_PER_S = 3.35e12
 # each conv route's peak and its operations per FLOP of the conv: the
 # 3xTF32 kernel does three TF32 products for each product
 ROUTE_PEAK = {"tc": ("bf16", 1), "tf32": ("tf32", 3), "fma": ("f32", 1),
-              "wgmma": ("bf16", 1)}
+              "wgmma": ("bf16", 1), "wgmma_tf32": ("tf32", 3)}
 CONV_SOURCES = {r: f"consistent_depth_tpu_torch/csrc/{f}" for r, f in (
     ("tc", "same_conv_tc.cu"), ("tf32", "same_conv_tf32.cu"),
-    ("fma", "same_conv.cu"), ("wgmma", "same_conv_wgmma.cu"))}
+    ("fma", "same_conv.cu"), ("wgmma", "same_conv_wgmma.cu"),
+    ("wgmma_tf32", "same_conv_wgmma_tf32.cu"))}
+# each dtype's two tensor-core routes, each timed beside the other on the
+# classes both take
+TC_PAIRS = {"bf16": ("wgmma", "tc"), "f32": ("wgmma_tf32", "tf32")}
 # bf16 server against f32 server: relative L2 error of the depth, the band
 # of the JAX package's bf16 test (tests/test_bf16.py)
 TOL_SERVE_BF16 = 0.05
@@ -521,10 +538,10 @@ def conv_bound(direction, N, H, W, k, Ci, Co, elem_bytes, route):
 
 @contextmanager
 def forced_route(s2d_conv, route):
-    """The conv wrappers take the tensor-core ``route`` ("tc" or "wgmma",
-    with the route's own tile and split) for every bf16 shape inside the
-    block: the other bf16 kernel, timed beside the plan's on the same
-    inputs."""
+    """The conv wrappers take the tensor-core ``route`` (a route of
+    TC_PAIRS, with the route's own tile and split) for every shape of its
+    dtype inside the block: the dtype's other kernel, timed beside the
+    plan's on the same inputs."""
     orig = s2d_conv._plan
     s2d_conv._plan = lambda *args, **kwargs: orig(*args, route=route,
                                                   **kwargs)
@@ -534,18 +551,21 @@ def forced_route(s2d_conv, route):
         s2d_conv._plan = orig
 
 
-def other_bf16_route(torch, s2d_conv, route, N, H, W, Ci, Co, k, grad):
-    """The bf16 tensor-core route to run beside the plan's ``route``: "tc"
-    beside "wgmma" (the design it replaced), "wgmma" beside "tc" where it
-    takes the class (the classes that "tc" ran faster); else None."""
-    if route == "wgmma":
-        return "tc"
+def other_route(s2d_conv, dt, dtype, route, N, H, W, Ci, Co, k, grad):
+    """The tensor-core route of ``dt`` ("bf16" or "f32") to run beside the
+    plan's ``route``: the dtype's earlier kernel ("tc", "tf32") beside its
+    wgmma kernel (the design it replaced), the wgmma kernel beside the
+    earlier one where it takes the class (the classes that the earlier
+    kernel ran faster); else None."""
+    wgmma, tc = TC_PAIRS[dt]
+    if route == wgmma:
+        return tc
     red, out = (Co, Ci) if grad else (Ci, Co)
-    if route == "tc" and s2d_conv._wgmma_takes(
-            torch.bfloat16, red, out, grad) and s2d_conv.wgmma_fits(
+    if route == tc and s2d_conv._wgmma_takes(
+            dtype, red, out, grad) and s2d_conv.wgmma_fits(
                 k, min(s2d_conv.TILE_HEIGHTS), red,
-                s2d_conv.wgmma_co_block(out)):
-        return "wgmma"
+                s2d_conv.wgmma_co_block(out, dtype), dtype):
+        return wgmma
     return None
 
 
@@ -572,11 +592,17 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
     inputs, the bound of the route (f32: both the 3xTF32 and the FMA
     bound), and when ``timed`` the times of the kernel, the plain version,
     (grad-input) cuDNN's dgrad and (f32) the FMA template from CUDA
-    events. In bf16 the other tensor-core kernel runs on the same inputs
-    too (``bf16["tc"]`` where the plan gives "wgmma", ``bf16["wgmma"]``
-    where it gives "tc" and "wgmma" takes the class: its error against
-    plain, which the band holds as well, and when ``timed`` its time);
-    ``bf16["tc_ms"]`` is the "tc" kernel's time whatever the route."""
+    events. The dtype's other tensor-core kernel runs on the same inputs
+    too (TC_PAIRS; ``bf16["tc"]`` or ``f32["tf32"]`` where the plan gives
+    the wgmma route, ``bf16["wgmma"]`` or ``f32["wgmma_tf32"]`` where it
+    gives the earlier kernel and the wgmma kernel takes the class: its
+    error against plain, which the band holds as well, and when ``timed``
+    its time and share of the bound); ``bf16["tc_ms"]`` and
+    ``f32["tf32_ms"]`` are the earlier kernel's time whatever the route.
+    "wgmma_tf32" is held to TOL_WGMMA_TF32, and where it runs, its weight
+    split (``split_tf32``) is held bit for bit against
+    ``split_tf32_reference`` and, when ``timed``, timed beside it
+    (``f32["weight_split"]``)."""
     N, H, W, C = ashape
     k, _, Ci, Co = wshape
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -628,9 +654,10 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
         rel = err / max(ref.abs().max().item(), 1e-30)
         route, tile_h, split = s2d_conv._plan(dt, N, H, W, Ci, Co, k,
                                               grad_input=grad)
-        alt_route = (other_bf16_route(torch, s2d_conv, route, N, H, W, Ci,
-                                      Co, k, grad)
-                     if name == "bf16" else None)
+        alt_route = other_route(s2d_conv, name, dt, route, N, H, W, Ci, Co,
+                                k, grad)
+        gflop, bound_ms, bound_by = conv_bound(
+            direction, N, H, W, k, Ci, Co, ad.element_size(), route)
         alt = None
         if alt_route is not None:
             with forced_route(s2d_conv, alt_route):
@@ -640,12 +667,13 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
                 alt = {"tile_h": alt_plan[1], "split": alt_plan[2],
                        "max_abs_err": alt_err,
                        "max_rel_err": alt_err / max(
-                           ref.abs().max().item(), 1e-30)}
+                           ref.abs().max().item(), 1e-30),
+                       "tol_rel": route_tol(alt_route, tol)}
                 if timed:
                     alt["ms"] = (cuda_ms(torch, kernel)
                                  + cuda_ms(torch, kernel)) / 2
-        gflop, bound_ms, bound_by = conv_bound(
-            direction, N, H, W, k, Ci, Co, ad.element_size(), route)
+                    alt["bound_share"] = bound_ms / alt["ms"]
+        tol = route_tol(route, tol)
         r = {"route": route, "tile_h": tile_h, "split": split,
              "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
              "bound_ms": bound_ms, "bound_by": bound_by}
@@ -667,12 +695,16 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
                                 + cuda_ms(torch, library)) / 2)
             r["tflops"] = gflop / r["ms"]
             r["bound_share"] = bound_ms / r["ms"]
-            if name == "bf16":
-                r["tc_ms"] = alt["ms"] if alt_route == "tc" else r["ms"]
+            tc = TC_PAIRS[name][1]
+            r[f"{tc}_ms"] = alt["ms"] if alt_route == tc else r["ms"]
         if alt is not None:
             r[alt_route] = alt
             ok = ok and math.isfinite(alt["max_rel_err"]) and (
-                alt["max_rel_err"] <= tol)
+                alt["max_rel_err"] <= alt["tol_rel"])
+        if "wgmma_tf32" in (route, alt_route):
+            r["weight_split"] = check_weight_split(torch, s2d_conv, wd,
+                                                   grad, timed)
+            ok = ok and r["weight_split"]["bitwise_equal"]
         row[name] = r
         ok = ok and math.isfinite(rel) and rel <= tol
     row["gflop"] = gflop
@@ -680,11 +712,46 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
     return row
 
 
+def route_tol(route, tol):
+    """The band a route is held to: the dtype's ``tol``, and for
+    "wgmma_tf32" its own, TOL_WGMMA_TF32."""
+    return min(tol, TOL_WGMMA_TF32) if route == "wgmma_tf32" else tol
+
+
+def check_weight_split(torch, s2d_conv, w, grad, timed):
+    """The "wgmma_tf32" weight split of the f32 weight ``w`` in the
+    direction's layout: the kernel (``split_tf32``) against
+    ``split_tf32_reference`` on the card, bit for bit; when ``timed``, the
+    kernel's device time alone (:func:`queued_ms`: a split of a few us
+    would otherwise time the host's launch rate), the plain version's from
+    CUDA events and the kernel's bound (its bytes: w read once, the two
+    planes written once, over the memory rate), which the ``kernels`` line
+    sums with the class counts."""
+    got = s2d_conv.split_tf32(w, grad)
+    want = s2d_conv.split_tf32_reference(w, grad)
+    out = {"bitwise_equal": bool(torch.equal(got, want)),
+           "max_abs_err": (got - want).abs().max().item()}
+    if timed:
+        def plain():
+            return s2d_conv.split_tf32_reference(w, grad)
+
+        def kernel():
+            return s2d_conv.split_tf32(w, grad)
+
+        ms, hidden = queued_ms(torch, kernel)
+        out.update({"ms": ms, "queue_hid_host": hidden,
+                    "plain_ms": (cuda_ms(torch, plain)
+                                 + cuda_ms(torch, plain)) / 2,
+                    "bound_ms": 1e3 * 3 * w.numel() * 4 / HBM_BYTES_PER_S,
+                    "bound_by": "bytes"})
+    return out
+
+
 # the timed numbers of a class that add up over classes; f32 rows carry
-# the FMA template's time and both bounds as well, bf16 rows the "tc"
-# kernel's time
+# the FMA template's time, the "tf32" kernel's and both bounds as well,
+# bf16 rows the "tc" kernel's time
 SUMMED = ("ms", "plain_ms", "library_ms", "bound_ms", "fma_ms",
-          "bound_ms_3xtf32", "bound_ms_fma", "tc_ms")
+          "bound_ms_3xtf32", "bound_ms_fma", "tc_ms", "tf32_ms")
 
 
 def conv_totals(rows, count_key):
@@ -704,13 +771,13 @@ def conv_totals(rows, count_key):
 
 def route_view(row, dt, route):
     """The numbers of ``route`` on one class in ``dt``: the plan's route's,
-    or, in bf16, those of the other tensor-core kernel timed beside it on
-    the same inputs (with the class's plain, library and bound times);
-    None where ``route`` did not run on the class."""
+    or those of the dtype's other tensor-core kernel timed beside it on the
+    same inputs (with the class's plain, library and bound times); None
+    where ``route`` did not run on the class."""
     r = row[dt]
     if r["route"] == route:
         return r
-    if route in ("tc", "wgmma") and route in r:
+    if route in TC_PAIRS[dt] and route in r:
         return {**r, **r[route], "route": route}
     return None
 
@@ -721,9 +788,9 @@ def conv_entry(name, replaces, launches, rows, count_key, dt, route):
     on, summed with their counts (ms, the plain version's, the library
     call's: cuDNN's fprop for the forward, whose plain version it is, and
     its dgrad for the grad-input; f32: the FMA template's ms and both
-    bounds), the largest error against plain. In bf16 "tc" and "wgmma"
-    each run on every class that either takes (the other timed beside the
-    plan's); ``launches`` are the plan's."""
+    bounds), the largest error against plain. Each dtype's two tensor-core
+    kernels (TC_PAIRS) each run on every class that either takes (the other
+    timed beside the plan's); ``launches`` are the plan's."""
     mine = [(r, v) for r in rows
             if (v := route_view(r, dt, route)) is not None]
     if not mine:
@@ -739,6 +806,28 @@ def conv_entry(name, replaces, launches, rows, count_key, dt, route):
         if key in mine[0][1]:
             entry[key] = sum(v[key] * r[count_key] for r, v in mine)
     entry["bound_by"] = by.most_common(1)[0][0]
+    return entry
+
+
+def split_entry(name, replaces, by_path, rows):
+    """The ``kernels`` line's entry of the "wgmma_tf32" weight split, or
+    None where the route ran on no class of ``rows`` ((row, count) pairs):
+    its times, the plain version's and its bound on each class's weight,
+    summed with the counts; its largest difference from the plain version
+    (0: the planes are held bit for bit)."""
+    mine = [(r["f32"]["weight_split"], n) for r, n in rows
+            if r["f32"]["route"] == "wgmma_tf32"
+            and "ms" in r["f32"].get("weight_split", {})]
+    if not mine:
+        return None
+    entry = {"name": name, "route": "cuda",
+             "source": CONV_SOURCES["wgmma_tf32"], "replaces": replaces,
+             "launches": sum(by_path.values()), "launches_by_path": by_path,
+             "classes": len(mine),
+             "max_abs_err": max(v["max_abs_err"] for v, _ in mine),
+             "bound_by": "bytes", "library_ms": None}
+    for key in ("ms", "plain_ms", "bound_ms"):
+        entry[key] = sum(v[key] * n for v, n in mine)
     return entry
 
 
@@ -1893,10 +1982,12 @@ CLI_DIR = os.path.join(REPO, "build", "chip_smoke_cli")
 
 
 def cli_path(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
-             device="cuda", keep=False):
+             f32_routes, device="cuda", keep=False):
     """Phase 11: the whole pipeline through the port's CLI on a scratch
     dataset directory (CLI_DIR), run in-process and then again as ``python
-    -m``; the artifacts, the scales and the launches checked, the CLI's
+    -m``; the artifacts, the scales and the launches checked (by route:
+    ``f32_routes``, the f32 step's {forward_<route>: launches per forward,
+    grad_input_<route>: launches per step} by the plan), the CLI's
     console kept in ``build/chip_smoke_cli.log``. The directory is deleted
     unless ``keep`` (the backbone phases run their CLI on it; the caller
     deletes it then)."""
@@ -1905,14 +1996,14 @@ def cli_path(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
     os.makedirs(work_dir)
     try:
         return _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward,
-                           init_sd, device, work_dir)
+                           init_sd, f32_routes, device, work_dir)
     finally:
         if not keep:
             shutil.rmtree(work_dir, ignore_errors=True)
 
 
 def _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
-                device, work_dir):
+                f32_routes, device, work_dir):
     import cv2
 
     image_io, metadata_io, process = (mods["image_io"], mods["metadata_io"],
@@ -2061,8 +2152,11 @@ def _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
     steps = -(-n_pairs // TRAIN_BATCH)
     forwards = 2 * -(-n // TRAIN_BATCH) + (CLI_EPOCHS + CLI_EPOCHS + 1) * steps
     want = (per_forward * forwards, (per_forward - 1) * CLI_EPOCHS * steps)
-    tc = "tf32"             # the CLI's default precision, f32
-    want_routes = {"forward_" + tc: want[0], "grad_input_" + tc: want[1]}
+    # the CLI's default precision is f32: its launches by the plan's f32
+    # routes per forward and per train step (phase 8's)
+    want_routes = {k: v * (forwards if k.startswith("forward_")
+                           else CLI_EPOCHS * steps)
+                   for k, v in f32_routes.items()}
 
     # again as a process of its own: every stage before fine-tuning finds its
     # outputs, and --resume finds the last epoch's full state
@@ -2590,18 +2684,22 @@ def _backbone_checks(torch, smi, name, training, s2d_conv, mods, LossWeights,
 
     # -- the CLI on phase 11's directory, one epoch ---------------------------
     record["cli"], cli_routes = backbone_cli(torch, name, s2d_conv, mods,
-                                             cli_dir, n_fwd, n_gx, device)
+                                             cli_dir, n_fwd, n_gx,
+                                             routes["f32"], device)
     main_routes["f32_cli"] = cli_routes
     emit(record)
     return record, main_routes, rows
 
 
-def backbone_cli(torch, name, s2d_conv, mods, cli_dir, n_fwd, n_gx, device):
+def backbone_cli(torch, name, s2d_conv, mods, cli_dir, n_fwd, n_gx,
+                 f32_routes, device):
     """``--model_type name`` on phase 11's directory for BACKBONE_CLI_EPOCHS
     epoch(s), in-process: the tag, the output tree, finite artifacts, a
-    checkpoint loading strict, the launches by route, and frame 0's initial
-    depth against the same adapter on the CPU. Its flows, masks and
-    downscaled frames are phase 11's, so those stages are skipped."""
+    checkpoint loading strict, the launches by route (``f32_routes``: the
+    plan's per forward and per train step in f32, the CLI's precision), and
+    frame 0's initial depth against the same adapter on the CPU. Its flows,
+    masks and downscaled frames are phase 11's, so those stages are
+    skipped."""
     image_io = mods["image_io"]
     args = ["--path", cli_dir, "--model_type", name, "--num_epochs",
             str(BACKBONE_CLI_EPOCHS)]
@@ -2664,6 +2762,9 @@ def backbone_cli(torch, name, s2d_conv, mods, cli_dir, n_fwd, n_gx, device):
     forwards = (2 * -(-n // TRAIN_BATCH)
                 + (2 * BACKBONE_CLI_EPOCHS + 1) * steps)
     want = (n_fwd * forwards, n_gx * BACKBONE_CLI_EPOCHS * steps)
+    want_routes = {k: v * (forwards if k.startswith("forward_")
+                           else BACKBONE_CLI_EPOCHS * steps)
+                   for k, v in f32_routes.items()}
     result = {
         "tag": os.path.basename(tag_dir), "wall_s": wall,
         "range_dir": os.path.basename(range_dir),
@@ -2673,7 +2774,7 @@ def backbone_cli(torch, name, s2d_conv, mods, cli_dir, n_fwd, n_gx, device):
         "eval_jsons": evals, "eval_losses_finite": losses_ok,
         "scales_csv": os.path.isfile(os.path.join(range_dir, "scales.csv")),
         "launches": list(launches), "expected_launches": list(want),
-        "route_counts": routes,
+        "route_counts": routes, "expected_routes": want_routes,
         "initial_depth_card_vs_cpu_rel_err": cpu_err, "tol_cpu": TOL_CPU_REF}
     require(result["tag"] == BACKBONE_TAGS[name]
             and result["range_dir"] == f"R_hierarchical2_{name}"
@@ -2684,9 +2785,9 @@ def backbone_cli(torch, name, s2d_conv, mods, cli_dir, n_fwd, n_gx, device):
     require(len(evals) == BACKBONE_CLI_EPOCHS + 1 and losses_ok,
             f"{name} CLI eval JSONs {evals}")
     require(tuple(launches) == want
-            and routes["forward_tf32"] == want[0]
-            and routes["grad_input_tf32"] == want[1],
-            f"{name} CLI launches {launches} {routes}, expected {want}")
+            and all(routes[k] == v for k, v in want_routes.items()),
+            f"{name} CLI launches {launches} {routes}, expected {want} "
+            f"{want_routes}")
     require(cpu_err < TOL_CPU_REF, f"{name} CLI initial depth card vs CPU "
             f"{cpu_err}")
     return result, routes
@@ -3553,7 +3654,8 @@ def main() -> int:
     backbones = {}
     try:
         cli = cli_path(torch, smi, mods, s2d_conv, corr, per_forward,
-                       context["init_sd"], keep=True)
+                       context["init_sd"], context["routes"]["f32"],
+                       keep=True)
         for name in BACKBONES:
             torch.cuda.empty_cache()
             _, *backbones[name] = backbone_path(
@@ -3607,7 +3709,8 @@ def main() -> int:
         for dt in ("bf16", "f32"):
             for route in s2d_conv.ROUTES:
                 suffix = path + ("" if dt == "bf16" else "_f32") + (
-                    f"_{route}" if route in ("fma", "wgmma") else "")
+                    f"_{route}" if route in ("fma", "wgmma", "wgmma_tf32")
+                    else "")
                 for name, key, rows_of, count_key, replaces in (
                         ("same_conv", "forward_", fwd_rows, fwd_key,
                          conv_tpu),
@@ -3620,6 +3723,19 @@ def main() -> int:
                     if entry is not None:
                         entry["launches_by_path"] = by_path
                     entries.append(entry)
+        # the "wgmma_tf32" weight split, one launch per call on that route:
+        # its times on the weights of the classes the route ran, summed with
+        # their counts
+        by_path = runs_of("f32", "weight_split")
+        wgmma_calls = {k: v + runs_of("f32", "grad_input_wgmma_tf32")[k]
+                       for k, v in runs_of("f32",
+                                           "forward_wgmma_tf32").items()}
+        require(by_path == wgmma_calls,
+                f"weight splits {by_path}, wgmma_tf32 calls {wgmma_calls}")
+        entries.append(split_entry("same_conv_weight_split" + path,
+                                   conv_tpu, by_path,
+                                   [(r, r[fwd_key]) for r in fwd_rows]
+                                   + [(r, r[bwd_key]) for r in bwd_rows]))
     # the correlation's two routes: the banded kernel at the main path's
     # shape, and the generic kernel on the same inputs (it has no main-path
     # launches); no one PyTorch call computes a cost volume

@@ -9,9 +9,11 @@ on the card unless the caller asks for the CPU. Ported so far:
 
 - eval-mode MannequinChallenge depth serving (``serving``), whose k x k
   convs run through hand-written CUDA kernels (``ops.s2d_conv``:
-  ``csrc/same_conv_tc.cu`` and ``csrc/same_conv_tf32.cu``, bf16 and f32
-  on the tensor cores, and ``csrc/same_conv.cu`` on the FMA pipes for the
-  shapes they do not take);
+  ``csrc/same_conv_wgmma.cu`` and ``csrc/same_conv_wgmma_tf32.cu``, bf16
+  and f32 (3xTF32) on wgmma, ``csrc/same_conv_tc.cu`` and
+  ``csrc/same_conv_tf32.cu`` on mma.sync for the classes those do not take
+  or run slower, and ``csrc/same_conv.cu`` on the FMA pipes for the shapes
+  none of them take);
 - the native flow path: FlowNet2 (``flow``), whose FlowNetC cost volume
   runs through a hand-written CUDA kernel (``flow.correlation``,
   ``csrc/correlation.cu``), and the flow stage (``pipeline.flow_stage``);

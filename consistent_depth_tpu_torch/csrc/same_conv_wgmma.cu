@@ -83,6 +83,11 @@
 // pipeline (barrier handshakes, one TMA per tap) and the A fragments'
 // shared-memory reads, not the tensor cores, set the pace.
 //
+// The machinery this source shares with the f32 kernel
+// (same_conv_wgmma_tf32.cu) is in same_conv_wgmma.cuh: the PTX wrappers,
+// the bounded barrier waits, the producer warp, the halo's TMA, the
+// tensor-map encode and its cache, and the split-K reduce kernel.
+//
 // Instantiations: N block (16, 32, 64, 128) x direction x m64 tiles per
 // warpgroup (1, or 2 for blocks of up to 64) x 16-channel steps per chunk
 // (1, 2, 4); k, the tile height, the ring's depth and the split are
@@ -91,136 +96,11 @@
 // The C entries return cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments they do not take.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <cstring>
-#include <mutex>
-#include <type_traits>
+#include "same_conv_wgmma.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
-
-constexpr int TW = 16;             // output columns per tile: one warp's m16
-constexpr int MAX_STAGES = 24;     // weight ring: one tap a stage
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
-constexpr int ALIGN = 1024;        // the 128-byte swizzle's repeat
-// a wait on an mbarrier that outlasts this many clocks (~10 s) is a fault
-// of the ring, not a slow copy: trap, so that the launch fails
-constexpr long long WAIT_LIMIT = 20000000000LL;
-
-struct Params {
-  const bf16* bias;  // (Cn,) or null
-  bf16* out;         // (N, H, W, Cn) contiguous
-  float* ws;         // (split, N, H, W, Cn) f32 when split > 1
-  int N, H, W, Cr, Cn, K, P;
-  int th, tiles_w, split, steps, nwg;
-  int ch, lg_nk;           // reduction channels per chunk, log2(ch / 16)
-  int halo_w, halo_h, halo_bytes, halos, stage_bytes, nst;
-  int a_swz;               // the halo's swizzle: XOR mask of bits 4-6
-  int wpos_c, wpos_r;      // weight map dimension of c and r (o: the third)
-  int b_atoms, b_atom_bytes;   // grad-input: TMA boxes of 64 channels
-  uint32_t b_kk_bytes;         // B's advance per 16 reduction channels
-  uint64_t b_desc;             // B's descriptor, start address 0
-};
-
-// -- PTX wrappers ---------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// one thread spins until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait_one(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > WAIT_LIMIT) __trap();
-}
-
-// a whole warp spins until the phase has completed, every lane polling
-// (each its own acquire) and the warp leaving together on a vote: the
-// wgmmas after it are then on a path the compiler knows is convergent
-__device__ __forceinline__ void mbar_wait_warp(uint32_t bar,
-                                               uint32_t parity) {
-  if (__all_sync(0xffffffffu, mbar_try(bar, parity))) return;
-  const long long t0 = clock64();
-  while (!__all_sync(0xffffffffu, mbar_try(bar, parity)))
-    if (clock64() - t0 > WAIT_LIMIT) __trap();
-}
-
-// a 4-D tiled TMA copy into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
-          "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from touching the accumulators while a wgmma group
-// that writes them may be in flight
-template <int LEN>
-__device__ __forceinline__ void fence_acc(float (&acc)[LEN]) {
-#pragma unroll
-  for (int i = 0; i < LEN; ++i) asm volatile("" : "+f"(acc[i])::"memory");
-}
 
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16, A from registers (the
 // m16n8k16 A fragment of each warp's 16 rows), B through its descriptor;
@@ -334,16 +214,10 @@ struct Wgmma<128> {
 template <int COB, bool GRAD, int MT, int NK>
 __global__ void __launch_bounds__(384, 1)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                  const __grid_constant__ CUtensorMap wmap, const Params p) {
+                  const __grid_constant__ CUtensorMap wmap,
+                  const Params<bf16> p) {
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + ALIGN - 1) & ~(ALIGN - 1);
-  const uint32_t s_halo = base;                           // 2 halo buffers
-  const uint32_t s_w = base + p.halos * p.halo_bytes;      // weight ring
-  const uint32_t s_bar = s_w + p.nst * p.stage_bytes;      // mbarriers
-  // halo full [0, 2), halo empty [2, 4), weight full, weight empty
-  const uint32_t bar_hfull = s_bar, bar_hempty = s_bar + 16;
-  const uint32_t bar_wfull = s_bar + 32;
-  const uint32_t bar_wempty = bar_wfull + 8 * p.nst;
+  const Smem sm = smem_layout(p, smem_raw);
 
   const int tid = threadIdx.x;
   const int oy0 = (blockIdx.x / p.tiles_w) * p.th;
@@ -351,105 +225,40 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   const int o0 = blockIdx.y * COB;
   const int n = blockIdx.z / p.split;
   const int sp = blockIdx.z % p.split;
-  // this block's reduction steps (chunk, tap row): the sp-th of split
-  // near-equal ranges
-  const int s_begin =
-      static_cast<int>(static_cast<int64_t>(sp) * p.steps / p.split);
-  const int s_end =
-      static_cast<int>(static_cast<int64_t>(sp + 1) * p.steps / p.split);
+  int s_begin, s_end;
+  step_range(p, sp, s_begin, s_end);
   const int K = p.K;
 
-  if (tid == 0) {
-    for (int b = 0; b < 2; ++b) {
-      mbar_init(bar_hfull + 8 * b, 1);
-      mbar_init(bar_hempty + 8 * b, 4 * p.nwg);
-    }
-    for (int s = 0; s < p.nst; ++s) {
-      mbar_init(bar_wfull + 8 * s, 1);
-      mbar_init(bar_wempty + 8 * s, 4 * p.nwg);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) init_barriers(p, sm);
   __syncthreads();
 
   // the warpgroup index, made warp-uniform for the compiler by a shuffle
   const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
   if (role == 0) {
-    // -- producer: warp 0 issues every copy, a tap row at once (lane c
-    // the tap (r, c) on its own stage, the halo by lane 0): one thread's
-    // wait, expect and copy for each tap in turn held the consumers back
+    // -- producer: warp 0 issues every copy (same_conv_wgmma.cuh)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid >= 32) return;
-    const int lane = tid;
-    const uint32_t halo_tx = p.halo_h * p.halo_w * p.ch * 2;
-    const uint32_t stage_tx = p.ch * COB * 2;
-    int hl = 0;  // halo loads so far
-    auto load_halo = [&](int chunk) {
-      if (lane == 0) {
-        const int b = hl & 1;
-        mbar_wait_one(bar_hempty + 8 * b, ((hl >> 1) & 1) ^ 1);
-        mbar_expect_tx(bar_hfull + 8 * b, halo_tx);
-        tma_load_4d(s_halo + b * p.halo_bytes, &xmap, bar_hfull + 8 * b,
-                    chunk * p.ch, ox0 - p.P, oy0 - p.P, n);
+    // the weight stage of tap (r, c) of a chunk: map dimensions 0 the
+    // contiguous i, then c, r and o by stride; the grad-input's tap (r, c)
+    // reads w[K-1-r, K-1-c]
+    auto load_stage = [&](uint32_t dst, uint32_t full, int chunk, int r,
+                          int c) {
+      const int cc = GRAD ? K - 1 - c : c;
+      const int rr = GRAD ? K - 1 - r : r;
+      const int oo = GRAD ? chunk * p.ch : o0;
+      const int d1 = p.wpos_c == 1 ? cc : p.wpos_r == 1 ? rr : oo;
+      const int d2 = p.wpos_c == 2 ? cc : p.wpos_r == 2 ? rr : oo;
+      const int d3 = p.wpos_c == 3 ? cc : p.wpos_r == 3 ? rr : oo;
+      if (!GRAD) {
+        tma_load_4d(dst, &wmap, full, chunk * p.ch, d1, d2, d3);
+      } else {
+        for (int a = 0; a < p.b_atoms; ++a)
+          tma_load_4d(dst + a * p.b_atom_bytes, &wmap, full, o0 + a * 64,
+                      d1, d2, d3);
       }
-      ++hl;
     };
-    const int ch_last = (s_end - 1) / K;
-    // the next chunk's halo goes out some rows into this chunk, once the
-    // consumers are into it (they release the last chunk's buffer there)
-    const int trigger = max(1, p.nst / (2 * K));
-    load_halo(s_begin / K);
-    int slot = 0;
-    uint32_t ph = 0;
-    bool pending = false;
-    int in_chunk = 0;
-    for (int s = s_begin; s < s_end; ++s) {
-      const int chunk = s / K;
-      const int r = s - chunk * K;
-      if (s == s_begin || r == 0) {
-        if (pending) load_halo(chunk);
-        pending = chunk < ch_last;
-        in_chunk = 0;
-      }
-      if (lane < K) {
-        // the ring holds at least K stages: one wrap at most in a row
-        int sl = slot + lane;
-        uint32_t pp = ph;
-        if (sl >= p.nst) {
-          sl -= p.nst;
-          pp ^= 1;
-        }
-        mbar_wait_one(bar_wempty + 8 * sl, pp ^ 1);
-        const uint32_t full = bar_wfull + 8 * sl;
-        const uint32_t dst = s_w + sl * p.stage_bytes;
-        mbar_expect_tx(full, stage_tx);
-        // map dimensions: 0 the contiguous i, then c, r and o by stride;
-        // the grad-input's tap (r, c) reads w[K-1-r, K-1-c]
-        const int cc = GRAD ? K - 1 - lane : lane;
-        const int rr = GRAD ? K - 1 - r : r;
-        const int oo = GRAD ? chunk * p.ch : o0;
-        const int d1 = p.wpos_c == 1 ? cc : p.wpos_r == 1 ? rr : oo;
-        const int d2 = p.wpos_c == 2 ? cc : p.wpos_r == 2 ? rr : oo;
-        const int d3 = p.wpos_c == 3 ? cc : p.wpos_r == 3 ? rr : oo;
-        if (!GRAD) {
-          tma_load_4d(dst, &wmap, full, chunk * p.ch, d1, d2, d3);
-        } else {
-          for (int a = 0; a < p.b_atoms; ++a)
-            tma_load_4d(dst + a * p.b_atom_bytes, &wmap, full, o0 + a * 64,
-                        d1, d2, d3);
-        }
-      }
-      __syncwarp();
-      slot += K;
-      if (slot >= p.nst) {
-        slot -= p.nst;
-        ph ^= 1;
-      }
-      if (pending && ++in_chunk == trigger) {
-        load_halo(chunk + 1);
-        pending = false;
-      }
-    }
+    produce(p, sm, xmap, tid, n, ox0, oy0, s_begin, s_end,
+            p.halo_h * p.halo_w * p.ch * 2, p.ch * COB * 2, load_stage);
     return;
   }
 
@@ -506,13 +315,13 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       }
       if (new_chunk) {
         // the last chunk's halo was read by ldmatrix already
-        if (g0 + j != 0 && lane == 0) mbar_arrive(bar_hempty + 8 * hb);
+        if (g0 + j != 0 && lane == 0) mbar_arrive(sm.hempty + 8 * hb);
         hb = hl & 1;
-        mbar_wait_warp(bar_hfull + 8 * hb, (hl >> 1) & 1);
+        mbar_wait_warp(sm.hfull + 8 * hb, (hl >> 1) & 1);
         ++hl;
       }
-      mbar_wait_warp(bar_wfull + 8 * slot, ph);
-      const uint32_t hbase = s_halo + hb * p.halo_bytes;
+      mbar_wait_warp(sm.wfull + 8 * slot, ph);
+      const uint32_t hbase = sm.halo + hb * p.halo_bytes;
 #pragma unroll
       for (int t = 0; t < MT; ++t) {
         const uint32_t row = (a_pix[t] + tap_pix) * PIX_BYTES + a_half;
@@ -522,7 +331,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
           ldsm4(a[B][j][t][kk], hbase + (off ^ ((off >> 3) & p.a_swz)));
         }
       }
-      stage[j] = s_w + slot * p.stage_bytes;
+      stage[j] = sm.w + slot * p.stage_bytes;
       ++held;
       if (++slot == p.nst) {
         slot = 0;
@@ -559,7 +368,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int t = 0; t < MT; ++t) fence_acc(acc[t]);
     // every earlier group is complete: release the stages of its taps
     for (; released < held_before; ++released) {
-      if (lane == 0) mbar_arrive(bar_wempty + 8 * rel_slot);
+      if (lane == 0) mbar_arrive(sm.wempty + 8 * rel_slot);
       if (++rel_slot == p.nst) rel_slot = 0;
     }
   };
@@ -616,119 +425,6 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// out = sum over the splits in order + bias, one element per thread
-__global__ void wgmma_split_reduce_kernel(const float* __restrict__ ws,
-                                          const bf16* __restrict__ bias,
-                                          bf16* __restrict__ out,
-                                          int64_t count, int Cn, int split) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < count; i += stride) {
-    float v = 0.f;
-    for (int s = 0; s < split; ++s) v += ws[s * count + i];
-    if (bias != nullptr) v += __bfloat162float(bias[i % Cn]);
-    out[i] = __float2bfloat16(v);
-  }
-}
-
-// -- host ---------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, looked up once
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-CUtensorMapSwizzle swizzle_of(int bytes) {
-  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                       : CU_TENSOR_MAP_SWIZZLE_32B;
-}
-
-// the descriptor's layout type of a swizzle of `bytes`: 1 = 128B, 2 = 64B,
-// 3 = 32B
-uint64_t layout_of(int bytes) {
-  return bytes == 128 ? 1 : bytes == 64 ? 2 : 3;
-}
-
-// what a tensor map encodes: the base, its sizes, strides, box, swizzle
-struct MapKey {
-  uint64_t words[13];
-  bool operator==(const MapKey& o) const {
-    return std::memcmp(words, o.words, sizeof(words)) == 0;
-  }
-};
-
-// Encoded maps, direct-mapped by a hash of their key: a train step's
-// activations come back at the same addresses from the caching allocator
-// and its weights stay where they are, so a step re-encodes little. A map
-// is a pure function of its key, so a hit is the map encoding would give.
-constexpr int MAP_CACHE = 512;
-struct MapCache {
-  std::mutex lock;
-  MapKey keys[MAP_CACHE];
-  CUtensorMap maps[MAP_CACHE];
-  bool used[MAP_CACHE] = {};
-};
-
-bool encode(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
-            const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4],
-            int swizzle_bytes) {
-  static MapCache cache;
-  MapKey key;
-  key.words[0] = reinterpret_cast<uintptr_t>(ptr);
-  for (int i = 0; i < 4; ++i) key.words[1 + i] = dims[i];
-  for (int i = 0; i < 3; ++i) key.words[5 + i] = strides[i];
-  for (int i = 0; i < 4; ++i) key.words[8 + i] = box[i];
-  key.words[12] = static_cast<uint64_t>(swizzle_bytes);
-  uint64_t h = 1469598103934665603ull;  // FNV-1a over the words
-  for (uint64_t w : key.words) h = (h ^ w) * 1099511628211ull;
-  const int slot = static_cast<int>(h % MAP_CACHE);
-  std::lock_guard<std::mutex> guard(cache.lock);
-  if (cache.used[slot] && cache.keys[slot] == key) {
-    *map = cache.maps[slot];
-    return true;
-  }
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         swizzle_of(swizzle_bytes), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  cache.keys[slot] = key;
-  cache.maps[slot] = *map;
-  cache.used[slot] = true;
-  return true;
-}
-
-int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
-}
-
 // the reduction channels per chunk (wgmma's k16 steps walk 16 of them):
 // the fewest of 16, 32, 64 that hold the reduction, halved while a split
 // over `split` blocks would find fewer steps (a chunk by a tap row); and
@@ -743,16 +439,12 @@ int block_of(int Cn) {
 }
 
 template <int COB, bool GRAD, int MT, int NK>
-cudaError_t launch(const Params& p, const CUtensorMap& xmap,
+cudaError_t launch(const Params<bf16>& p, const CUtensorMap& xmap,
                    const CUtensorMap& wmap, int smem, cudaStream_t stream) {
-  static int attr_set = 0;  // the largest size granted so far
-  if (smem > 48 * 1024 && smem > attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv_wgmma_kernel<COB, GRAD, MT, NK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = smem;
-  }
+  static int granted = 0;
+  const cudaError_t e0 =
+      grant_smem(conv_wgmma_kernel<COB, GRAD, MT, NK>, smem, granted);
+  if (e0 != cudaSuccess) return e0;
   const int tiles_h = (p.H + p.th - 1) / p.th;
   const dim3 grid(tiles_h * p.tiles_w, (p.Cn + COB - 1) / COB,
                   p.N * p.split);
@@ -760,16 +452,11 @@ cudaError_t launch(const Params& p, const CUtensorMap& xmap,
       <<<grid, 128 * (1 + p.nwg), smem, stream>>>(xmap, wmap, p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.split == 1) return e;
-  const int64_t count = static_cast<int64_t>(p.N) * p.H * p.W * p.Cn;
-  const int blocks = static_cast<int>(
-      (count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
-  wgmma_split_reduce_kernel<<<blocks, 256, 0, stream>>>(p.ws, p.bias, p.out,
-                                                         count, p.Cn, p.split);
-  return cudaGetLastError();
+  return launch_split_reduce(p, stream);
 }
 
 template <int COB, bool GRAD, int MT>
-cudaError_t launch_nk(const Params& p, const CUtensorMap& xmap,
+cudaError_t launch_nk(const Params<bf16>& p, const CUtensorMap& xmap,
                       const CUtensorMap& wmap, int smem, cudaStream_t s) {
   switch (p.lg_nk) {
     case 0: return launch<COB, GRAD, MT, 1>(p, xmap, wmap, smem, s);
@@ -779,7 +466,7 @@ cudaError_t launch_nk(const Params& p, const CUtensorMap& xmap,
 }
 
 template <bool GRAD>
-cudaError_t launch_cob(const Params& p, const CUtensorMap& xmap,
+cudaError_t launch_cob(const Params<bf16>& p, const CUtensorMap& xmap,
                        const CUtensorMap& wmap, int smem, cudaStream_t s) {
   const bool two = p.th == 16;
   switch (block_of(p.Cn)) {
@@ -806,7 +493,7 @@ int conv_entry(bool grad, const void* a, const void* w, const void* bias,
                int K, int64_t as_n, int64_t as_h, int64_t as_w, int64_t as_c,
                int64_t ws_r, int64_t ws_c, int64_t ws_i, int64_t ws_o,
                int tile_h, int split, void* workspace, void* stream) {
-  Params p;
+  Params<bf16> p;
   p.bias = static_cast<const bf16*>(bias);
   p.out = static_cast<bf16*>(out);
   p.ws = static_cast<float*>(workspace);
@@ -861,17 +548,8 @@ int conv_entry(bool grad, const void* a, const void* w, const void* bias,
 
   // the halo: x as (C, W, H, N), a box of one chunk by the halo tile
   CUtensorMap xmap, wmap;
-  const cuuint64_t xdims[4] = {static_cast<cuuint64_t>(p.Cr),
-                               static_cast<cuuint64_t>(W),
-                               static_cast<cuuint64_t>(H),
-                               static_cast<cuuint64_t>(N)};
-  const cuuint64_t xstrides[3] = {static_cast<cuuint64_t>(as_w * 2),
-                                  static_cast<cuuint64_t>(as_h * 2),
-                                  static_cast<cuuint64_t>(xs_n * 2)};
-  const cuuint32_t xbox[4] = {static_cast<cuuint32_t>(p.ch),
-                              static_cast<cuuint32_t>(p.halo_w),
-                              static_cast<cuuint32_t>(p.halo_h), 1};
-  if (!encode(&xmap, a, xdims, xstrides, xbox, p.ch * 2))
+  if (!encode_halo(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, xs_n, as_h,
+                   as_w, p))
     return cudaErrorInvalidValue;
 
   // the weight as (i, then c, r, o by increasing stride); one box is a
@@ -923,7 +601,8 @@ int conv_entry(bool grad, const void* a, const void* w, const void* bias,
     p.b_desc = (lbo << 16) | (static_cast<uint64_t>(inner * 2 * 8 / 16) << 32) |
                (layout_of(w_swizzle) << 62);
   }
-  if (!encode(&wmap, w, wdims, wstrides, wbox, w_swizzle))
+  if (!encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, wdims, wstrides,
+              wbox, w_swizzle))
     return cudaErrorInvalidValue;
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -8,9 +8,9 @@ together, and linked into one shared library with a plain C interface,
 The hash covers the sources and the compiler flags, so editing a source
 rebuilds it. The library is loaded with ``ctypes``; every pointer and the
 stream cross as ``c_void_p``. It links the CUDA runtime only: the one
-driver call, ``cuTensorMapEncodeTiled`` (the TMA tensor maps of
-``csrc/same_conv_wgmma.cu``), is looked up at run time through
-``cudaGetDriverEntryPoint``.
+driver call, ``cuTensorMapEncodeTiled`` (the TMA tensor maps of the wgmma
+sources, encoded in ``csrc/same_conv_wgmma.cuh``), is looked up at run time
+through ``cudaGetDriverEntryPoint``.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises. Callers
 reach this module only for tensors on a CUDA device.
@@ -34,17 +34,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib: Optional[ctypes.CDLL] = None
 
-# the routed conv entries' arguments (same_conv_{tc,tf32,wgmma}_forward and
+# the routed conv entries' arguments (same_conv_<route>_forward and
 # _grad_input): the forward's x, w, bias, out, the grad-input's ct, w, dx;
 # dtype, N, H, W, Ci, Co, K; the (n, h, w, c) element strides of x or ct and
 # the (r, c, i, o) strides of w; tile_h, split; the workspace, the stream
-ROUTED_CONV_ROUTES = ("tc", "tf32", "wgmma")
+ROUTED_CONV_ROUTES = ("tc", "tf32", "wgmma", "wgmma_tf32")
 ROUTED_FORWARD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                            + [ctypes.c_int64] * 8 + [ctypes.c_int] * 2
                            + [ctypes.c_void_p] * 2)
 ROUTED_GRAD_INPUT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                               + [ctypes.c_int64] * 8 + [ctypes.c_int] * 2
                               + [ctypes.c_void_p] * 2)
+# same_conv_tf32_split_weight's arguments: w, planes, Ci, Co, K, the (r, c,
+# i, o) element strides of w, grad, the stream
+SPLIT_WEIGHT_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                         + [ctypes.c_int64] * 4 + [ctypes.c_int]
+                         + [ctypes.c_void_p])
 # correlation_banded_forward's arguments: f1, f2, out, B, H, W, C, r, group,
 # the (n, h, w) element strides of f1 and of f2, the stream
 CORRELATION_BANDED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
@@ -138,6 +143,8 @@ def library() -> ctypes.CDLL:
             gx = getattr(lib, f"same_conv_{route}_grad_input")
             gx.argtypes = ROUTED_GRAD_INPUT_ARGTYPES
             gx.restype = i32
+        lib.same_conv_tf32_split_weight.argtypes = SPLIT_WEIGHT_ARGTYPES
+        lib.same_conv_tf32_split_weight.restype = i32
         lib.correlation_banded_forward.argtypes = CORRELATION_BANDED_ARGTYPES
         lib.correlation_banded_forward.restype = i32
         lib.correlation_generic_forward.argtypes = (

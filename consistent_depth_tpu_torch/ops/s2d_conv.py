@@ -21,10 +21,17 @@ CUDA kernels compute the conv directly, with no relayout. Its routes:
   2-channel cotangent), which TMA's 16-byte strides cannot take, and
   those of 16 output or reduction channels, where it ran faster on the
   card (``WGMMA_THIN``);
-- ``"tf32"``, ``csrc/same_conv_tf32.cu``: f32 (the fine-tune's default
-  precision) on the tensor cores, the ``"tc"`` implicit GEMM with every
-  product split into three TF32 products (3xTF32), which keeps f32's
-  accuracy;
+- ``"wgmma_tf32"``, ``csrc/same_conv_wgmma_tf32.cu``: f32 (the fine-tune's
+  default precision) on ``wgmma.mma_async`` in 3xTF32 (every product split
+  into three TF32 products, which keeps f32's accuracy), with the weight
+  split beforehand into a big and a small TF32 plane by a kernel of its
+  own, and the planes and the halo tile fed by TMA (the machinery it shares
+  with ``"wgmma"`` is ``csrc/same_conv_wgmma.cuh``);
+- ``"tf32"``, ``csrc/same_conv_tf32.cu``: the earlier f32 design, the
+  ``"tc"`` implicit GEMM in 3xTF32; it keeps the f32 convs whose reduction
+  is loaded by element (the stem, the heads' grad-input) and those of 16 or
+  fewer output channels, where it ran faster on the card
+  (``WGMMA_TF32_THIN``);
 - ``"fma"``, ``csrc/same_conv.cu``: a direct conv on the FMA pipes, for
   the shapes the tensor-core kernels do not take.
 
@@ -67,6 +74,21 @@ CHUNK = {torch.bfloat16: 16, torch.float32: 8}
 WGMMA_CO_BLOCKS = (16, 32, 64, 128)
 WGMMA_CHUNKS = (16, 32, 64)
 WGMMA_TALL_MAX_CO_BLOCK = 64
+# the "wgmma_tf32" kernel's: blocks of up to 64 channels (the accumulator,
+# its partial and two buffers of split A fragments share the registers),
+# two m64 tiles per warpgroup for blocks of up to 32; a chunk of 16 f32
+# channels (64 bytes of each pixel, the 64-byte swizzle), whose two halo
+# tiles leave a k=11 tap row's 11 stages room at every tile height, or of
+# 32 (the 128-byte swizzle) for a k=3 reduction over more than 16 channels
+# at tiles of one m64 per warpgroup (4 or 8 rows), where it ran faster on
+# the card; at 16-row tiles for k >= 7 each chunk's halo is split once in
+# shared memory, into a second copy (csrc/same_conv_wgmma_tf32.cu, chunk_of
+# and smem_split_of)
+WGMMA_TF32_CO_BLOCKS = (16, 32, 64)
+WGMMA_TF32_CHUNKS = (16, 32)
+WGMMA_TF32_WIDE_CHUNK_K = 3
+WGMMA_TF32_TALL_MAX_CO_BLOCK = 32
+WGMMA_TF32_SMEM_SPLIT_MIN_K = 7
 # its shared memory: the halo tiles (two where the reduction has more
 # than one chunk), a ring of weight stages (one tap each, at most 24), each
 # rounded to the 1024-byte swizzle repeat, the barriers and the alignment;
@@ -77,6 +99,10 @@ WGMMA_SMEM = 232448
 WGMMA_ALIGN = 1024
 WGMMA_GROUP_STEPS = 4
 WGMMA_MAX_STAGES = 24
+# a "wgmma_tf32" stage holds a tap's big and small weight boxes, and a
+# commit group is one tap
+WGMMA_TF32_PLANES = 2
+WGMMA_TF32_GROUP_TAPS = 1
 # bf16 classes that "tc" ran faster than "wgmma" on the card, which take
 # "tc": an output-channel block of 16 (wgmma's N = 16, where each m64n16k16
 # reads as many A bytes from shared memory as an m64n64k16) or a reduction
@@ -94,9 +120,25 @@ WGMMA_MAX_STAGES = 24
 # Every other class of mc, midas2 and monodepth2 ran faster on "wgmma" or
 # within a few us of "tc" (PERF.md section 6).
 WGMMA_THIN = 16
-# the routes (module docstring), and the tensor-core route of each dtype
-# for what "wgmma" does not take
-ROUTES = ("tc", "tf32", "fma", "wgmma")
+# f32 classes that "tf32" ran faster than "wgmma_tf32" on the card, which
+# take "tf32": 16 or fewer output channels (wgmma's N = 16, where each
+# m64n16k8 carries as many A fragments as an m64n64k8, three times over).
+# Device time alone (tools/torch_conv_wgmma.py --dtype f32, NVIDIA H100 80GB
+# HBM3, 700.00 W), "wgmma_tf32" against "tf32", in us, of mc's forward
+# classes at batch 8 (x, then w as k, Ci->Co):
+#   224x384x64, 11 64->16: 4223.5 / 3257.7; 7 64->16: 1800.4 / 1304.4;
+#     3 64->16: 366.0 / 344.8; 3 64->2: 364.7 / 343.3;
+#   112x192x32, 11 32->16: 632.4 / 488.5; 7 32->16: 269.6 / 203.5;
+#     3 32->16: 65.6 / 56.6.
+# Every other f32 class of mc, midas2 and monodepth2 ran faster on
+# "wgmma_tf32", 0.27-0.95 of "tf32"'s time, but mc's 14x24 3x3 32->64,
+# a few us either way (19.2 / 14.3 forward, 17.3 / 15.4 grad-input; PERF.md
+# section 6).
+WGMMA_TF32_THIN = 16
+# the routes (module docstring); each dtype's wgmma route, and its
+# tensor-core route for what the wgmma route does not take
+ROUTES = ("tc", "tf32", "fma", "wgmma", "wgmma_tf32")
+_WGMMA_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "wgmma_tf32"}
 _TC_ROUTE = {torch.bfloat16: "tc", torch.float32: "tf32"}
 # an H100 SXM's streaming multiprocessors; a grid below two blocks per SM
 # leaves the card under-filled
@@ -107,12 +149,13 @@ MIN_BLOCKS = 2 * SMS
 # :func:`same_conv_grad_input` (one per call, whatever the route)
 launches = 0
 grad_input_launches = 0
-# the same calls by route (ROUTES), the split-K reduction passes, and the
+# the same calls by route (ROUTES), the split-K reduction passes, the
 # tensors the tensor-core routes copied to make their channels contiguous
-# and aligned
+# and aligned, and the launches of the "wgmma_tf32" weight split (one per
+# call on that route, and one per :func:`split_tf32` on the card)
 route_counts = dict.fromkeys(
     [f"{d}_{r}" for d in ("forward", "grad_input") for r in ROUTES]
-    + ["split_reduce", "layout_copies"], 0)
+    + ["split_reduce", "layout_copies", "weight_split"], 0)
 
 
 def reset_counts() -> None:
@@ -137,18 +180,30 @@ def _unit(dtype: torch.dtype) -> int:
     return 16 // dtype.itemsize
 
 
-def wgmma_co_block(channels: int) -> int:
-    """The "wgmma" kernel's output-channel block (wgmma's N) for
-    ``channels`` output channels."""
-    return next((b for b in WGMMA_CO_BLOCKS[:-1] if channels <= b),
-                WGMMA_CO_BLOCKS[-1])
+def wgmma_co_block(channels: int,
+                   dtype: torch.dtype = torch.bfloat16) -> int:
+    """The wgmma route's output-channel block (wgmma's N) for ``channels``
+    output channels of ``dtype``."""
+    blocks = (WGMMA_CO_BLOCKS if dtype == torch.bfloat16
+              else WGMMA_TF32_CO_BLOCKS)
+    return next((b for b in blocks[:-1] if channels <= b), blocks[-1])
 
 
-def wgmma_chunk(channels: int, k: int = 1, split: int = 1) -> int:
-    """The "wgmma" kernel's reduction channels per chunk for a reduction
-    over ``channels`` with k x k taps, as its source picks it: the fewest of
-    WGMMA_CHUNKS that hold the reduction, halved while a split over
-    ``split`` blocks would find fewer steps (a chunk by a tap row)."""
+def wgmma_chunk(channels: int, k: int = 1, split: int = 1,
+                dtype: torch.dtype = torch.bfloat16,
+                tile_h: int = 4) -> int:
+    """The wgmma route's reduction channels per chunk for a reduction over
+    ``channels`` of ``dtype`` with k x k taps, as its source picks it. bf16:
+    the fewest of WGMMA_CHUNKS that hold the reduction, halved while a
+    split over ``split`` blocks would find fewer steps (a chunk by a tap
+    row); f32: 32 for k = WGMMA_TF32_WIDE_CHUNK_K over more than 16
+    channels at a tile of ``tile_h`` < 16 rows where a split over ``split``
+    blocks finds as many steps, else 16."""
+    if dtype != torch.bfloat16:
+        wide = (k == WGMMA_TF32_WIDE_CHUNK_K and channels > WGMMA_TF32_CHUNKS[0]
+                and tile_h < 16
+                and math.ceil(channels / WGMMA_TF32_CHUNKS[1]) * k >= split)
+        return WGMMA_TF32_CHUNKS[wide]
     chunk = next((c for c in WGMMA_CHUNKS[:-1] if channels <= c),
                  WGMMA_CHUNKS[-1])
     while chunk > WGMMA_CHUNKS[0] and math.ceil(channels / chunk) * k < split:
@@ -160,31 +215,61 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def wgmma_fits(k: int, tile_h: int, red: int, cob: int) -> bool:
-    """Whether ``csrc/same_conv_wgmma.cu``'s shared memory holds the halo
+def wgmma_fits(k: int, tile_h: int, red: int, cob: int,
+               dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the wgmma route's shared memory (``csrc/same_conv_wgmma.cu``
+    for bf16, ``csrc/same_conv_wgmma_tf32.cu`` for f32) holds the halo
     tiles of ``tile_h`` + k - 1 rows by TILE_W + k - 1 columns of a chunk
-    of bf16 channels of a reduction over ``red`` and a ring of two commit
+    of channels of a reduction over ``red`` and a ring of two commit
     groups' weight stages, and of a tap row's k (the producer fills a row
-    at once), for an output-channel block ``cob``."""
-    chunk = wgmma_chunk(red)
-    halo = _round_up((tile_h + k - 1) * (TILE_W + k - 1) * chunk * 2,
+    at once), for an output-channel block ``cob``. An f32 stage holds a
+    tap's big and small weight boxes, and a halo split in shared memory
+    (16-row tiles, k >= WGMMA_TF32_SMEM_SPLIT_MIN_K) a second copy."""
+    size = dtype.itemsize
+    chunk = wgmma_chunk(red, k, dtype=dtype, tile_h=tile_h)
+    halo = _round_up((tile_h + k - 1) * (TILE_W + k - 1) * chunk * size,
                      WGMMA_ALIGN)
-    stage = _round_up(chunk * cob * 2, WGMMA_ALIGN)
+    if dtype == torch.bfloat16:
+        stage = _round_up(chunk * cob * size, WGMMA_ALIGN)
+        taps_per_group = WGMMA_GROUP_STEPS // (chunk // 16)
+    else:
+        stage = WGMMA_TF32_PLANES * _round_up(chunk * cob * size, WGMMA_ALIGN)
+        taps_per_group = WGMMA_TF32_GROUP_TAPS
     halos = 2 if red > chunk else 1
+    if (dtype != torch.bfloat16 and tile_h == 16
+            and k >= WGMMA_TF32_SMEM_SPLIT_MIN_K):
+        halos *= 2
     fixed = WGMMA_ALIGN + halos * halo + 32 + 16 * WGMMA_MAX_STAGES
-    taps_per_group = WGMMA_GROUP_STEPS // (chunk // 16)
-    return (WGMMA_SMEM - fixed) // stage >= max(2 * taps_per_group, k)
+    stages = min((WGMMA_SMEM - fixed) // stage, WGMMA_MAX_STAGES)
+    return stages >= max(2 * taps_per_group, k)
 
 
 def _wgmma_takes(dtype: torch.dtype, red: int, out: int,
                  grad_input: bool) -> bool:
-    """Whether the "wgmma" kernel takes a conv reducing over ``red`` into
-    ``out`` channels: bf16, the reduction a whole number of 16-byte units
-    (TMA's strides), and a grad-input's output channels too (the weight's
-    contiguous dimension there)."""
+    """Whether the dtype's wgmma route takes a conv reducing over ``red``
+    into ``out`` channels: the reduction a whole number of 16-byte units,
+    8 bf16 or 4 f32 (TMA's strides), and a grad-input's output channels
+    too (bf16: the weight's contiguous dimension there)."""
     unit = _unit(dtype)
-    return (dtype == torch.bfloat16 and red % unit == 0
+    return (dtype in _WGMMA_ROUTE and red % unit == 0
             and (not grad_input or out % unit == 0))
+
+
+def _wgmma_tall_max(dtype: torch.dtype) -> int:
+    """The largest output-channel block the wgmma route of ``dtype`` runs
+    at the 16-row tile (two m64 tiles per consumer warpgroup)."""
+    return (WGMMA_TALL_MAX_CO_BLOCK if dtype == torch.bfloat16
+            else WGMMA_TF32_TALL_MAX_CO_BLOCK)
+
+
+def _wgmma_slower(dtype: torch.dtype, red: int, out: int) -> bool:
+    """Whether the dtype's tensor-core route ran a class reducing over
+    ``red`` into ``out`` channels faster than its wgmma route on the card:
+    bf16 with 16 or fewer output or reduction channels (WGMMA_THIN), f32
+    with 16 or fewer output channels (WGMMA_TF32_THIN)."""
+    if dtype == torch.bfloat16:
+        return min(red, out) <= WGMMA_THIN
+    return out <= WGMMA_TF32_THIN
 
 
 @functools.lru_cache(maxsize=4096)
@@ -195,48 +280,52 @@ def _plan(dtype: torch.dtype, N: int, H: int, W: int, Ci: int, Co: int,
     x (N, H, W, Ci) with w (k, k, Ci, Co), or with ``grad_input`` its
     grad-input, a conv reducing over Co into Ci channels.
 
-    bf16 takes "wgmma" wherever it can (:func:`_wgmma_takes`, and a tile
-    that :func:`wgmma_fits`) but where "tc" ran faster on the card (16 or
-    fewer output or reduction channels, WGMMA_THIN), else "tc", which also
-    loads a reduction of a channel count that is not a whole number of
-    16-byte units by element (the stem's 3, the merged heads' 2); f32
-    takes "tf32". A grad-input into a number of channels that is not a
-    whole number of 16-byte units, 8 bf16 or 4 f32 (the kernels copy its
-    weight in units along them), takes the FMA template ("fma", tile and
-    split unused). ``route`` names a tensor-core route to plan instead
-    (the card's check times the two bf16 kernels on the same inputs).
+    Each dtype takes its wgmma route ("wgmma" for bf16, "wgmma_tf32" for
+    f32) wherever it can (:func:`_wgmma_takes`, and a tile that
+    :func:`wgmma_fits`) but where its tensor-core route ran faster on the
+    card (:func:`_wgmma_slower`: bf16 with 16 or fewer output or reduction
+    channels, f32 with 16 or fewer output channels), else its tensor-core
+    route ("tc", "tf32"), which also loads a
+    reduction of a channel count that is not a whole number of 16-byte
+    units by element (the stem's 3, the merged heads' 2). A grad-input
+    into a number of channels that is not a whole number of 16-byte units,
+    8 bf16 or 4 f32 (the kernels copy its weight in units along them),
+    takes the FMA template ("fma", tile and split unused). ``route`` names
+    a route of the dtype to plan instead (the card's check times the two
+    kernels of a dtype on the same inputs).
 
     The tile is the tallest of 16, 8, 4 rows that gives at least
     MIN_BLOCKS blocks (16 only from twice that, so that the taller tile,
     which re-reads less halo and weight per output, still leaves each SM a
-    few blocks); "wgmma" takes 16 rows only for output-channel blocks of up
-    to WGMMA_TALL_MAX_CO_BLOCK and a tile only where :func:`wgmma_fits`.
+    few blocks); a wgmma route takes 16 rows only for output-channel blocks
+    of up to its tall maximum and a tile only where :func:`wgmma_fits`.
     Where even 4 rows give fewer blocks, the reduction's steps (a chunk of
     channels by one tap row: CHUNK[dtype] for "tc" and "tf32",
-    :func:`wgmma_chunk` for "wgmma", which halves its chunk for more steps)
-    are split over blocks, up to MIN_BLOCKS blocks."""
+    :func:`wgmma_chunk` for the wgmma routes, where bf16 halves its chunk
+    for more steps) are split over blocks, up to MIN_BLOCKS blocks."""
     red, out = (Co, Ci) if grad_input else (Ci, Co)
+    wgmma = _WGMMA_ROUTE[dtype]
     if route is None:
         if grad_input and out % _unit(dtype):
             return "fma", 0, 1
-        route = ("wgmma" if _wgmma_takes(dtype, red, out, grad_input)
-                 and min(red, out) > WGMMA_THIN
+        route = (wgmma if _wgmma_takes(dtype, red, out, grad_input)
+                 and not _wgmma_slower(dtype, red, out)
                  and wgmma_fits(k, min(TILE_HEIGHTS), red,
-                                wgmma_co_block(out))
+                                wgmma_co_block(out, dtype), dtype)
                  else _TC_ROUTE[dtype])
-    elif route == "wgmma" and not _wgmma_takes(dtype, red, out, grad_input):
-        raise ValueError(f"_plan: wgmma does not take {dtype} reducing "
+    elif route == wgmma and not _wgmma_takes(dtype, red, out, grad_input):
+        raise ValueError(f"_plan: {wgmma} does not take {dtype} reducing "
                          f"{red} into {out} channels")
-    elif route not in ("wgmma", _TC_ROUTE[dtype]):
+    elif route not in (wgmma, _TC_ROUTE[dtype]):
         raise ValueError(f"_plan: route {route!r} is not a tensor-core "
                          f"route of {dtype}")
-    if route == "wgmma":
-        cob = wgmma_co_block(out)
+    if route == wgmma:
+        cob = wgmma_co_block(out, dtype)
         heights = [th for th in TILE_HEIGHTS
-                   if (th < 16 or cob <= WGMMA_TALL_MAX_CO_BLOCK)
-                   and wgmma_fits(k, th, red, cob)]
+                   if (th < 16 or cob <= _wgmma_tall_max(dtype))
+                   and wgmma_fits(k, th, red, cob, dtype)]
         if not heights:
-            raise ValueError(f"_plan: no wgmma tile fits k={k} reducing "
+            raise ValueError(f"_plan: no {wgmma} tile fits k={k} reducing "
                              f"{red} into {out} channels")
     else:
         cob = co_block(out, dtype)
@@ -252,8 +341,8 @@ def _plan(dtype: torch.dtype, N: int, H: int, W: int, Ci: int, Co: int,
         if th in heights and blocks(th) >= MIN_BLOCKS:
             return route, th, 1
     want = math.ceil(MIN_BLOCKS / blocks(4))
-    chunk = (wgmma_chunk(red, k, want) if route == "wgmma"
-             else CHUNK[dtype])
+    chunk = (wgmma_chunk(red, k, want, dtype, min(TILE_HEIGHTS))
+             if route == wgmma else CHUNK[dtype])
     return route, 4, min(math.ceil(red / chunk) * k, want)
 
 
@@ -285,6 +374,66 @@ def _tc_operands(a: torch.Tensor, w: torch.Tensor, grad_input: bool):
         w = w.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
         route_counts["layout_copies"] += 1
     return a, w
+
+
+def _workspace(route: str, split: int, out_shape, w: torch.Tensor,
+               device) -> Optional[torch.Tensor]:
+    """The f32 workspace of a tensor-core route's call: the split's partial
+    sums (split, *out_shape) when split > 1, after, for "wgmma_tf32", the
+    weight's two TF32 planes (2 k k Ci Co); None where neither is
+    needed."""
+    size = split * math.prod(out_shape) if split > 1 else 0
+    if route == "wgmma_tf32":
+        size += WGMMA_TF32_PLANES * w.numel()
+    return (torch.empty(size, dtype=torch.float32, device=device)
+            if size else None)
+
+
+def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 (10 mantissa bits) as the card's
+    ``cvt.rna.tf32.f32`` does: to nearest, ties away from zero (half of the
+    dropped 13 bits added to the magnitude)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_reference(w: torch.Tensor,
+                         grad_input: bool = False) -> torch.Tensor:
+    """Plain version of the "wgmma_tf32" weight split: the f32 weight w (k,
+    k, Ci, Co) as two TF32 planes, big = tf32(w) and small = tf32(w - big),
+    K-major for the direction: (2, k, k, Co, Ci) for the forward, (2, k, k,
+    Ci, Co) for the grad-input (taps unflipped)."""
+    v = w.float()
+    if not grad_input:
+        v = v.permute(0, 1, 3, 2)
+    big = _tf32_rna(v)
+    return torch.stack([big, _tf32_rna(v - big)])
+
+
+def split_tf32(w: torch.Tensor, grad_input: bool = False) -> torch.Tensor:
+    """The "wgmma_tf32" weight split (:func:`split_tf32_reference`'s
+    planes): on a CUDA tensor the split kernel of
+    ``csrc/same_conv_wgmma_tf32.cu``, which the conv's C entries launch
+    before the conv; a CPU tensor takes the plain version."""
+    if w.device.type == "cpu":
+        return split_tf32_reference(w, grad_input)
+    if w.device.type != "cuda" or w.dtype != torch.float32 or w.dim() != 4:
+        raise ValueError(f"split_tf32: a 4-D f32 CUDA weight, not "
+                         f"{w.dtype} {tuple(w.shape)} on {w.device}")
+    k, k2, Ci, Co = w.shape
+    shape = (2, k, k2, Ci, Co) if grad_input else (2, k, k2, Co, Ci)
+    planes = torch.empty(shape, dtype=torch.float32, device=w.device)
+    if planes.numel() == 0:
+        return planes
+    lib = _cuda.library()
+    with torch.cuda.device(w.device):
+        err = lib.same_conv_tf32_split_weight(
+            w.data_ptr(), planes.data_ptr(), Ci, Co, k, *w.stride(),
+            int(grad_input),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _cuda.check(lib, err, "split_tf32")
+    route_counts["weight_split"] += 1
+    return planes
 
 
 def same_conv_reference(x: torch.Tensor, w: torch.Tensor,
@@ -352,8 +501,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor,
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         if route != "fma":
             x, w = _tc_operands(x, w, grad_input=False)
-            ws = (torch.empty((split, N, H, W, Co), dtype=torch.float32,
-                              device=x.device) if split > 1 else None)
+            ws = _workspace(route, split, (N, H, W, Co), w, x.device)
             err = getattr(lib, f"same_conv_{route}_forward")(
                 x.data_ptr(), w.data_ptr(),
                 bias.data_ptr() if bias is not None else None,
@@ -371,6 +519,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor,
     launches += 1
     route_counts["forward_" + route] += 1
     route_counts["split_reduce"] += split > 1
+    route_counts["weight_split"] += route == "wgmma_tf32"
     return out
 
 
@@ -400,8 +549,7 @@ def same_conv_grad_input(ct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         if route != "fma":
             ct, w = _tc_operands(ct, w, grad_input=True)
-            ws = (torch.empty((split, N, H, W, Ci), dtype=torch.float32,
-                              device=ct.device) if split > 1 else None)
+            ws = _workspace(route, split, (N, H, W, Ci), w, ct.device)
             err = getattr(lib, f"same_conv_{route}_grad_input")(
                 ct.data_ptr(), w.data_ptr(), dx.data_ptr(),
                 _DTYPE_CODES[ct.dtype], N, H, W, Ci, Co, k, *ct.stride(),
@@ -417,6 +565,7 @@ def same_conv_grad_input(ct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     grad_input_launches += 1
     route_counts["grad_input_" + route] += 1
     route_counts["split_reduce"] += split > 1
+    route_counts["weight_split"] += route == "wgmma_tf32"
     return dx
 
 

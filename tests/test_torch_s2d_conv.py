@@ -161,8 +161,9 @@ TC_ROUTES = {torch.bfloat16: ("tc", 16), torch.float32: ("tf32", 8)}
 def _check_plan(plan, dtype, N, H, W, Ci, Co, k, grad):
     """A plan's tiles cover the output, its output-channel blocks the
     output channels, and a split's ranges every reduction step once, with
-    at least MIN_BLOCKS blocks; "wgmma" tiles fit its shared memory and
-    take 16 rows only for blocks of up to 64 channels."""
+    at least MIN_BLOCKS blocks; "wgmma" and "wgmma_tf32" tiles fit their
+    shared memory and take 16 rows only for blocks of up to 64 and 32
+    channels."""
     route, th, split = plan
     assert th in s2d_conv.TILE_HEIGHTS
     red, out = (Co, Ci) if grad else (Ci, Co)
@@ -176,6 +177,13 @@ def _check_plan(plan, dtype, N, H, W, Ci, Co, k, grad):
         assert th < 16 or cob <= s2d_conv.WGMMA_TALL_MAX_CO_BLOCK
         assert s2d_conv.wgmma_fits(k, th, red, cob)
         assert chunk * 2 in (32, 64, 128)   # the swizzle widths TMA has
+    elif route == "wgmma_tf32":
+        cob = s2d_conv.wgmma_co_block(out, dtype)
+        chunk = s2d_conv.wgmma_chunk(red, k, split, dtype, th)
+        assert cob in s2d_conv.WGMMA_TF32_CO_BLOCKS
+        assert th < 16 or cob <= s2d_conv.WGMMA_TF32_TALL_MAX_CO_BLOCK
+        assert s2d_conv.wgmma_fits(k, th, red, cob, dtype)
+        assert chunk * 4 in (64, 128)
     else:
         cob = s2d_conv.co_block(out, dtype)
         assert cob <= s2d_conv.MAX_CO_BLOCK[dtype]
@@ -201,9 +209,11 @@ def test_plan_routes_hourglass_classes(direction, dtype):
     takes "wgmma" but where its reduction is loaded by element (the stem's
     3 input channels, the merged heads' 2-channel cotangent) or it has 16
     output or reduction channels (WGMMA_THIN: "tc" ran faster there on the
-    card): "tc", with steps of 16 channels; f32 takes "tf32" (steps of 8
-    channels). A plan's tiles cover the output, and a split's ranges cover
-    every reduction step once, with at least MIN_BLOCKS blocks."""
+    card): "tc", with steps of 16 channels; f32 takes "wgmma_tf32" but
+    where its reduction is loaded by element or it has 16 or fewer output
+    channels (WGMMA_TF32_THIN): "tf32", with steps of 8 channels. A plan's
+    tiles cover the output, and a split's ranges cover every reduction
+    step once, with at least MIN_BLOCKS blocks."""
     calls = _hourglass_calls()
     assert len(calls) == 68
     grad = direction == "grad_input"
@@ -216,9 +226,12 @@ def test_plan_routes_hourglass_classes(direction, dtype):
         plan = s2d_conv._plan(dtype, N, H, W, Ci, Co, k, grad_input=grad)
         red, out = (Co, Ci) if grad else (Ci, Co)
         narrow = red % (16 // dtype.itemsize) != 0
-        thin = min(red, out) <= s2d_conv.WGMMA_THIN
-        want = ("wgmma" if dtype == torch.bfloat16 and not narrow
-                and not thin else tc_route)
+        if dtype == torch.bfloat16:
+            thin = min(red, out) <= s2d_conv.WGMMA_THIN
+            want = "wgmma" if not narrow and not thin else tc_route
+        else:
+            thin = out <= s2d_conv.WGMMA_TF32_THIN
+            want = "wgmma_tf32" if not narrow and not thin else tc_route
         assert plan[0] == want
         routes.append(plan[0])
         _check_plan(plan, dtype, N, H, W, Ci, Co, k, grad)
@@ -227,6 +240,11 @@ def test_plan_routes_hourglass_classes(direction, dtype):
         # grad-input: the heads' and the six of a 16-channel cotangent
         assert routes.count("tc") == (8 if not grad else 7)
         assert routes.count("wgmma") == 60
+    else:
+        # forward: the stem and the seven classes into 16 or 2 channels;
+        # grad-input: the heads' 2-channel cotangent
+        assert routes.count("tf32") == (8 if not grad else 1)
+        assert routes.count("wgmma_tf32") == (60 if not grad else 66)
 
 
 def test_plan_narrow_and_ragged_cases():
@@ -257,8 +275,10 @@ def test_plan_narrow_and_ragged_cases():
     # 1x7x13, k=11, 64 -> 16: two 4x16 tiles, split up to the steps of
     # the reduction: 44 forward in bf16 (16 channels each) and 11 in the
     # grad-input (the cotangent's 16 channels), 88 in f32 (8 channels
-    # each); 16 output channels take "tc" in bf16 (WGMMA_THIN), and
-    # "wgmma", when asked, halves its chunk of 64 for as many steps
+    # each); 16 output channels take "tc" in bf16 (WGMMA_THIN) and "tf32"
+    # in f32 (WGMMA_TF32_THIN), and "wgmma", when asked, halves its chunk
+    # of 64 for as many steps; f32's grad-input into 64 channels takes
+    # "wgmma_tf32", one chunk of 16 a tap row
     assert s2d_conv._plan(bf16, 1, 7, 13, 64, 16, 11) == ("tc", 4, 44)
     assert s2d_conv._plan(bf16, 1, 7, 13, 64, 16, 11, grad_input=True) == (
         "tc", 4, 11)
@@ -268,7 +288,11 @@ def test_plan_narrow_and_ragged_cases():
                           route="wgmma") == ("wgmma", 4, 11)
     assert s2d_conv._plan(f32, 1, 7, 13, 64, 16, 11) == ("tf32", 4, 88)
     assert s2d_conv._plan(f32, 1, 7, 13, 64, 16, 11, grad_input=True) == (
-        "tf32", 4, 22)
+        "wgmma_tf32", 4, 11)
+    assert s2d_conv._plan(f32, 1, 7, 13, 64, 16, 11, grad_input=True,
+                          route="tf32") == ("tf32", 4, 22)
+    assert s2d_conv._plan(f32, 1, 7, 13, 64, 16, 11,
+                          route="wgmma_tf32") == ("wgmma_tf32", 4, 44)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -389,6 +413,87 @@ def test_plan_routes_backbone_classes_bf16(name, direction):
                           else {"fma": 1, "tc": 7, "wgmma": 60})
 
 
+# the f32 routes per forward and per backward of each backbone at 224x384,
+# batch 8: mc keeps on "tf32" its stem (3 input channels, loaded by
+# element) and the seven classes into 16 or 2 channels (WGMMA_TF32_THIN)
+# forward, its heads' 2-channel cotangent backward, and its stem's
+# grad-input into 3 channels takes "fma"; midas2 and monodepth2 run
+# "wgmma_tf32" throughout
+F32_ROUTES = {
+    ("mc", "forward"): {"tf32": 8, "wgmma_tf32": 60},
+    ("mc", "grad_input"): {"fma": 1, "tf32": 1, "wgmma_tf32": 66},
+    ("midas2", "forward"): {"wgmma_tf32": 20},
+    ("midas2", "grad_input"): {"wgmma_tf32": 20},
+    ("monodepth2", "forward"): {"wgmma_tf32": 13},
+    ("monodepth2", "grad_input"): {"wgmma_tf32": 13},
+}
+
+
+@pytest.mark.parametrize("direction", ["forward", "grad_input"])
+@pytest.mark.parametrize("name", sorted(MODEL_CALLS))
+def test_plan_routes_backbone_classes_f32(name, direction):
+    """Every f32 conv class of the three backbones at 224x384, batch 8:
+    "wgmma_tf32" for each but a reduction loaded by element ("tf32": mc's
+    stem forward, its heads' grad-input), 16 or fewer output channels
+    ("tf32": mc's classes that it ran faster on the card,
+    WGMMA_TF32_THIN) and a grad-input into 3 channels ("fma": mc's stem);
+    a "wgmma_tf32" tile covers the output in blocks that fit its shared
+    memory (16 rows only for blocks of up to 32 channels, a chunk of 32
+    channels only at k=3 below 16 rows), a split's ranges cover every
+    reduction step once, and the blocks reach MIN_BLOCKS."""
+    f32 = torch.float32
+    calls = _model_calls(name)
+    assert len(calls) == MODEL_CALLS[name]
+    grad = direction == "grad_input"
+    routes = []
+    for (N, H, W, Ci), (k, _, _, Co) in calls:
+        plan = s2d_conv._plan(f32, N, H, W, Ci, Co, k, grad_input=grad)
+        routes.append(plan[0])
+        red, out = (Co, Ci) if grad else (Ci, Co)
+        if plan[0] == "fma":
+            assert grad and Ci % 4 and plan == ("fma", 0, 1)
+            continue
+        if plan[0] == "tf32":
+            assert red % 4 or out <= s2d_conv.WGMMA_TF32_THIN
+        else:
+            chunk = s2d_conv.wgmma_chunk(red, k, plan[2], f32, plan[1])
+            assert (chunk == 32) == (k == 3 and red > 16 and plan[1] < 16
+                                     and math.ceil(red / 32) * k
+                                     >= plan[2])
+        _check_plan(plan, f32, N, H, W, Ci, Co, k, grad)
+    assert Counter(routes) == F32_ROUTES[(name, direction)]
+
+
+# mc's f32 forward classes that "tf32" ran faster than "wgmma_tf32" on the
+# card (ops/s2d_conv.py gives both times beside WGMMA_TF32_THIN): (x shape,
+# w shape)
+THIN_CLASSES_F32 = [
+    ((8, 224, 384, 64), (11, 11, 64, 16)),
+    ((8, 224, 384, 64), (7, 7, 64, 16)),
+    ((8, 224, 384, 64), (3, 3, 64, 16)),
+    ((8, 224, 384, 64), (3, 3, 64, 2)),
+    ((8, 112, 192, 32), (11, 11, 32, 16)),
+    ((8, 112, 192, 32), (7, 7, 32, 16)),
+    ((8, 112, 192, 32), (3, 3, 32, 16)),
+]
+
+
+@pytest.mark.parametrize("xshape,wshape", THIN_CLASSES_F32)
+def test_plan_thin_classes_take_tf32(xshape, wshape):
+    """The f32 classes of 16 or fewer output channels, which "tf32" ran
+    faster on the card, take "tf32"; "wgmma_tf32" still takes them when
+    asked by name (the card's check times both)."""
+    N, H, W, _ = xshape
+    k, _, Ci, Co = wshape
+    f32 = torch.float32
+    plan = s2d_conv._plan(f32, N, H, W, Ci, Co, k)
+    assert plan == s2d_conv._plan(f32, N, H, W, Ci, Co, k, route="tf32")
+    assert plan[0] == "tf32"
+    wg = s2d_conv._plan(f32, N, H, W, Ci, Co, k, route="wgmma_tf32")
+    assert wg[0] == "wgmma_tf32"
+    _check_plan(wg, f32, N, H, W, Ci, Co, k, False)
+
+
 # mc's bf16 classes that "tc" ran faster than "wgmma" on the card (the
 # comment above ops/s2d_conv.py's WGMMA_THIN gives both times): (direction,
 # x or ct shape, w shape)
@@ -441,6 +546,14 @@ def test_plan_explicit_route():
         s2d_conv._plan(*args, route="tf32")
     with pytest.raises(ValueError):
         s2d_conv._plan(torch.float32, *args[1:], route="wgmma")
+    with pytest.raises(ValueError):
+        s2d_conv._plan(bf16, *args[1:], route="wgmma_tf32")
+    f32 = (torch.float32, *args[1:])
+    assert s2d_conv._plan(*f32)[0] == "wgmma_tf32"
+    assert s2d_conv._plan(*f32, route="tf32") == ("tf32", 16, 1)
+    with pytest.raises(ValueError):
+        s2d_conv._plan(torch.float32, 8, 224, 384, 3, 128, 7,
+                       route="wgmma_tf32")
 
 
 @pytest.mark.parametrize("k,tile_h,red,cob,fits", [
@@ -456,6 +569,114 @@ def test_wgmma_fits(k, tile_h, red, cob, fits):
     halo tiles (two where the reduction has more than one chunk) and a
     ring of two commit groups' weight stages within 227 KB."""
     assert s2d_conv.wgmma_fits(k, tile_h, red, cob) == fits
+
+
+@pytest.mark.parametrize("k,tile_h,red,cob,fits", [
+    # k=11, a 4-row tile, a block of 64: two halos of 14x26x64 B (23.3 KB)
+    # and 8 KB stages (a tap's big and small boxes) leave 22 stages
+    (11, 4, 64, 64, True),
+    # the 16-row tile's halos are split in shared memory at k >= 7: four
+    # of 26x26x64 B (44 KB) leave 11 stages of 4 KB, a tap row
+    (11, 16, 64, 32, True),
+    (11, 16, 64, 16, True),
+    # one chunk (a 16-channel reduction): one halo and its small copy
+    (11, 16, 16, 32, True),
+    (11, 8, 16, 64, True),
+    # k=3 below 16 rows takes a chunk of 32: 128-byte halo rows, 16 KB
+    # stages
+    (3, 8, 256, 64, True),
+    # a block of 64 at 16 rows: the four halos leave 6 stages of 8 KB,
+    # fewer than a tap row (the plan's register rule keeps it below 16 rows
+    # anyway)
+    (11, 16, 64, 64, False),
+    # 64 KB stages: none beside the halos
+    (11, 16, 4096, 512, False),
+])
+def test_wgmma_fits_f32(k, tile_h, red, cob, fits):
+    """The shared memory of the "wgmma_tf32" kernel as its source sizes it:
+    the halo tiles (two where the reduction has more than one chunk, and a
+    small copy of each where the 16-row tile at k >= 7 splits the halo in
+    shared memory) and a ring of stages of a tap's two TF32 weight boxes,
+    a tap row at least, within 227 KB."""
+    assert s2d_conv.wgmma_fits(k, tile_h, red, cob, torch.float32) == fits
+
+
+def test_wgmma_tf32_stage_count():
+    """The ring's depth at the k=11 cases of the design: 22 stages beside
+    two 4-row halos of 16 channels at a 64-channel block; with a chunk of 32
+    channels the halos and stages double and 8 stages remain, fewer than a
+    k=11 tap row, so k=11 keeps the chunk of 16."""
+    def stages(k, th, chunk, cob, halos):
+        halo = s2d_conv._round_up((th + k - 1) * (16 + k - 1) * chunk * 4,
+                                  s2d_conv.WGMMA_ALIGN)
+        stage = 2 * s2d_conv._round_up(chunk * cob * 4, s2d_conv.WGMMA_ALIGN)
+        fixed = (s2d_conv.WGMMA_ALIGN + halos * halo + 32
+                 + 16 * s2d_conv.WGMMA_MAX_STAGES)
+        return (s2d_conv.WGMMA_SMEM - fixed) // stage
+
+    assert stages(11, 4, 16, 64, 2) == 22
+    assert stages(11, 4, 32, 64, 2) == 8
+    assert s2d_conv.wgmma_chunk(64, 11, 1, torch.float32, 4) == 16
+    assert s2d_conv.wgmma_chunk(64, 3, 1, torch.float32, 4) == 32
+    assert s2d_conv.wgmma_chunk(64, 3, 1, torch.float32, 16) == 16
+    assert s2d_conv.wgmma_chunk(16, 3, 1, torch.float32, 4) == 16
+    # a split over more blocks than the wide chunk's steps halves it
+    assert s2d_conv.wgmma_chunk(64, 3, 7, torch.float32, 4) == 16
+
+
+def test_split_tf32_reference():
+    """The "wgmma_tf32" weight split on the CPU: big is w rounded to TF32
+    (its low 13 bits zero) and big + small is within 2^-22 of |w|, K-major
+    for each direction: (2, k, k, Co, Ci) for the forward; (2, k, k, Ci,
+    Co) for the grad-input, which, read at the flipped tap (k-1-r, k-1-c)
+    as the kernel's tensor map reads it, is the JAX package's flipped,
+    channel-swapped weight ``w[::-1, ::-1].transpose(0, 1, 3, 2)``
+    (``layers.py::_conv_pallas_bwd``) as [tap][n][k]. split_tf32 on a CPU
+    tensor is the plain version and launches nothing."""
+    rng = np.random.default_rng(3)
+    w = (rng.standard_normal((11, 11, 64, 16)) / 30).astype(np.float32)
+    wf = np.asarray(jnp.asarray(w)[::-1, ::-1].transpose(0, 1, 3, 2))
+    wt = torch.from_numpy(w)
+    before = s2d_conv.route_counts["weight_split"]
+    for grad, want in ((False, w.transpose(0, 1, 3, 2)),
+                       (True, wf[::-1, ::-1].transpose(0, 1, 3, 2))):
+        planes = s2d_conv.split_tf32_reference(wt, grad).numpy()
+        assert planes.shape == (2, *want.shape)
+        big, small = planes.astype(np.float64)
+        assert np.all(planes.view(np.int32) & 0x1FFF == 0)
+        np.testing.assert_array_equal(planes[0], _tf32(want))
+        assert np.all(np.abs(big + small - want) <= 2.0 ** -22 * np.abs(want))
+        torch.testing.assert_close(s2d_conv.split_tf32(wt, grad),
+                                   torch.from_numpy(planes), rtol=0, atol=0)
+    assert s2d_conv.route_counts["weight_split"] == before
+
+
+def test_tf32_wgmma_design_three_terms():
+    """The "wgmma_tf32" kernel's arithmetic on a k=11 64->64 class, with f64
+    sums: A split per fragment word (big = tf32(x), small = tf32(x - big))
+    and B from the pre-split planes, small*big + big*small + big*big, stays
+    within 1e-6 of max |ref| of the f64 conv; big*big alone does not."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1, 12, 16, 64)).astype(np.float32)
+    w = (rng.standard_normal((11, 11, 64, 64)) / np.sqrt(11 * 11 * 64)
+         ).astype(np.float32)
+    planes = s2d_conv.split_tf32_reference(torch.from_numpy(w)).numpy()
+    # the planes are [r][c][o][i]: back to HWIO
+    wb, ws = (q.transpose(0, 1, 3, 2) for q in planes)
+    xb = s2d_conv._tf32_rna(torch.from_numpy(x)).numpy()
+    xs = s2d_conv._tf32_rna(torch.from_numpy(x - xb)).numpy()
+    np.testing.assert_array_equal(xb, _tf32(x))
+
+    def conv(a, b):
+        return s2d_conv.same_conv_reference(
+            torch.from_numpy(a.astype(np.float64)),
+            torch.from_numpy(b.astype(np.float64))).numpy()
+
+    ref = conv(x, w)
+    scale = np.abs(ref).max()
+    three = conv(xb, wb) + conv(xb, ws) + conv(xs, wb)
+    assert np.abs(three - ref).max() / scale < 1e-6
+    assert np.abs(conv(xb, wb) - ref).max() / scale > 1e-4
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -476,7 +697,8 @@ def _c_entry_argtypes(source, name):
 
 @pytest.mark.parametrize("route,source", [
     ("wgmma", "same_conv_wgmma.cu"), ("tc", "same_conv_tc.cu"),
-    ("tf32", "same_conv_tf32.cu")])
+    ("tf32", "same_conv_tf32.cu"),
+    ("wgmma_tf32", "same_conv_wgmma_tf32.cu")])
 @pytest.mark.parametrize("direction", ["forward", "grad_input"])
 def test_routed_entries_match_argtypes(route, source, direction):
     """ops/_cuda.py's argtypes for each routed conv entry are the
@@ -487,6 +709,14 @@ def test_routed_entries_match_argtypes(route, source, direction):
             else _cuda.ROUTED_GRAD_INPUT_ARGTYPES)
     assert _c_entry_argtypes(
         source, f"same_conv_{route}_{direction}") == want
+
+
+def test_split_weight_entry_matches_argtypes():
+    """ops/_cuda.py's argtypes for the weight-split entry of the
+    "wgmma_tf32" source are its ``extern "C"`` declaration's parameters."""
+    assert _c_entry_argtypes("same_conv_wgmma_tf32.cu",
+                             "same_conv_tf32_split_weight") == (
+        _cuda.SPLIT_WEIGHT_ARGTYPES)
 
 
 def test_same_conv_bf16_cpu_takes_reference():

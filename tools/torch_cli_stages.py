@@ -18,6 +18,7 @@ import argparse
 import os
 import shutil
 import sys
+from collections import Counter
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -58,10 +59,22 @@ def main() -> int:
     del init
     n_incep = sum(1 for m in hourglass.HourglassModel().modules()
                   if isinstance(m, hourglass.Inception))
+    # the f32 routes per forward and per train step by the plan: a step's
+    # grad-inputs are the forward's classes on their outputs' shapes, but
+    # the stem's (its 3-channel input needs no gradient)
+    probe = create_depth_model("mc", checkpoint="", device="cuda")
+    classes = cs.record_conv_classes(torch, s2d_conv, probe)
+    del probe
+    gx = Counter({((*x[:3], w[3]), w): n for (x, w, _), n in classes.items()
+                  if x[3] != 3})
+    f32_routes = {f"forward_{r}": n for r, n in cs.expected_routes(
+        s2d_conv, classes, torch.float32, False).items()}
+    f32_routes.update({f"grad_input_{r}": n for r, n in cs.expected_routes(
+        s2d_conv, gx, torch.float32, True).items()})
     mods = cs.cli_modules(training)
     try:
         cs.cli_path(torch, smi, mods, s2d_conv, corr, 1 + 3 * n_incep + 1,
-                    init_sd, keep=True)
+                    init_sd, f32_routes, keep=True)
         if args.backbones:
             engine = training.TrainingEngine(
                 create_depth_model("mc", checkpoint="", device="cuda"),

@@ -22,7 +22,8 @@ library is built from the committed sources with that checkout's
 It prints each variant's f32 source's registers and spill bytes per
 instantiation (``nvcc -Xptxas -v``), then for every conv class of the main
 path (one batch-8 forward at 224x384 and the 67 grad-inputs of a train
-step) each variant's CUDA-event time and its error against plain (max |d| /
+step), on the mma.sync route of each dtype (``"tf32"``, ``"tc"``) whatever
+route the plan gives the class, each variant's CUDA-event time and its error against plain (max |d| /
 max |ref|, cuDNN with TF32 off), timed in turns (a, b, c, c, b, a), and the
 totals weighted by the classes' counts, one JSON line each.
 
@@ -52,6 +53,8 @@ from consistent_depth_tpu_torch.models.registry import (  # noqa: E402
 from consistent_depth_tpu_torch.ops import _cuda, s2d_conv  # noqa: E402
 
 TF32 = "same_conv_tf32.cu"
+# each dtype's mma.sync route, timed here whatever the plan's route
+TC_ROUTE = {"f32": "tf32", "bf16": "tc"}
 OUT_DIR = REPO / "build" / "conv_variants"
 
 CHAINED = [("""  float t0[4] = {0.f, 0.f, 0.f, 0.f};
@@ -223,13 +226,17 @@ def main():
                         a.float(), w.float())
                 scale = ref.abs().max().item()
                 ms, err = dict.fromkeys(names, 0.0), {}
-                for n in names + names[::-1]:
-                    _cuda._lib = libs[n]
-                    s2d_conv.MAX_CO_BLOCK[torch.float32] = (
-                        64 if n == "co_block_64" else 32)
-                    if n not in err:
-                        err[n] = (fn().float() - ref).abs().max().item() / scale
-                    ms[n] += cs.cuda_ms(torch, fn) / 2
+                # the mma.sync kernels of the dtype, whatever the plan's
+                # route: "tf32" (the source the variants edit) and "tc"
+                with cs.forced_route(s2d_conv, TC_ROUTE[dt]):
+                    for n in names + names[::-1]:
+                        _cuda._lib = libs[n]
+                        s2d_conv.MAX_CO_BLOCK[torch.float32] = (
+                            64 if n == "co_block_64" else 32)
+                        if n not in err:
+                            err[n] = ((fn().float() - ref).abs().max().item()
+                                      / scale)
+                        ms[n] += cs.cuda_ms(torch, fn) / 2
                 s2d_conv.MAX_CO_BLOCK[torch.float32] = 32
                 for n in names:
                     key = f"{direction}_{dt}_{n}"

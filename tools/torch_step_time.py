@@ -10,7 +10,9 @@ batch 4 pairs, the seeded ``mc`` init with the tamed head, Adam at 4e-4),
 taken from the checkout's own ``chip_smoke.py``. After 3 warm-up steps it
 times 3 runs of 20 steps: CUDA events over each run (ms per step), the host
 clock, the host's time to queue the steps, and, for a checkout whose
-NaN-skip reads a flag on the host, its wait in that read. It prints one
+NaN-skip reads a flag on the host, its wait in that read; then it profiles
+5 more steps with the checkout's ``chip_smoke.profile_train`` (the device's
+busy ms per step, its idle share and the k x k convs' ms). It prints one
 JSON line with the card's name and power limit.
 
 Usage, from the root of a checkout on the card:
@@ -45,6 +47,7 @@ def main():
     from consistent_depth_tpu_torch import training
     from consistent_depth_tpu_torch.models.registry import (
         create_depth_model)
+    from consistent_depth_tpu_torch.ops import s2d_conv
     from consistent_depth_tpu_torch.ops.losses import LossWeights
 
     workload = cs.make_train_workload(training, cs.SIZE)
@@ -60,7 +63,7 @@ def main():
     n_pairs = len(workload["pair_ids"])
     batches = list(islice(training.PairBatchIterator(
         n_pairs, cs.TRAIN_BATCH, seed=0).epoch(0),
-        3 + STEPS * REPEATS))
+        3 + STEPS * REPEATS + cs.PROFILED_STEPS))
     for idx, valid in batches[:3]:
         engine.train_step(data, idx, valid)
     runs = []
@@ -85,8 +88,12 @@ def main():
             "host_issue_ms_per_step": 1e3 * issued / len(timed),
             "flag_wait_ms_per_step": (1e3 * engine.flag_wait_s / len(timed)
                                       if reads_flag else None)})
+    profile = cs.profile_train(torch, engine, data, batches, s2d_conv)
     print(json.dumps({"repo": args.repo, "precision": args.precision,
                       "steps": STEPS, "runs": runs,
+                      "device_ms_per_step": profile["device_ms_per_step"],
+                      "device_idle_share": profile["device_idle_share"],
+                      "ranges_ms_per_step": profile["ranges_ms_per_step"],
                       "nvidia_smi": cs.nvidia_smi_line()}), flush=True)
 
 
