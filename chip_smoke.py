@@ -1141,7 +1141,7 @@ def drive_train(torch, engine, data, batches, s2d_conv):
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    launches = s2d_conv.launch_counts()
     return {
         "steps": len(timed),
         "ms_per_step": start.elapsed_time(end) / len(timed),
@@ -1256,7 +1256,7 @@ def train_path(torch, smi, classes, training, s2d_conv,
         torch.cuda.synchronize()
     finally:
         s2d_conv.same_conv_grad_input = orig_gx
-    first_launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    first_launches = s2d_conv.launch_counts()
     first_routes = dict(s2d_conv.route_counts)
     first_grads = grads_of(eng16)
     loss16 = float(first16["loss"])
@@ -1483,8 +1483,8 @@ def timed_pass(torch, s2d_conv, steps, fn, checked=True):
         "ms_per_step": start.elapsed_time(end) / steps,
         "host_ms_per_step": 1e3 * host_s / steps,
         "host_issue_ms_per_step": 1e3 * issued / steps,
-        "same_conv_launches": s2d_conv.launches,
-        "grad_input_launches": s2d_conv.grad_input_launches,
+        "same_conv_launches": s2d_conv.launch_counts()[0],
+        "grad_input_launches": s2d_conv.launch_counts()[1],
         "route_counts": dict(s2d_conv.route_counts)}
 
 
@@ -1743,7 +1743,7 @@ def _driver_checks(torch, smi, training, s2d_conv, image_io, torch_import,
         s2d_conv.reset_counts()
         ft, wall, _, save_s = run_driver(training, range_dir, checkpoint,
                                          FT_EPOCHS, log, save_depth=True)
-        launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+        launches = s2d_conv.launch_counts()
         routes = dict(s2d_conv.route_counts)
         out_dir = ft.out_dir
         ck = ft.checkpoints_dir
@@ -1778,7 +1778,7 @@ def _driver_checks(torch, smi, training, s2d_conv, image_io, torch_import,
         s2d_conv.reset_counts()
         ft2, wall2, text2, _ = run_driver(training, range_dir, checkpoint,
                                           FT_EPOCHS + 1, log)
-        launches2 = (s2d_conv.launches, s2d_conv.grad_input_launches)
+        launches2 = s2d_conv.launch_counts()
         full2 = sorted(f for f in os.listdir(ck) if f.startswith("full_"))
         evals2 = sorted(f for f in os.listdir(os.path.join(out_dir, "eval"))
                         if f.startswith("loss_e"))
@@ -2032,8 +2032,7 @@ def _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
     process.Stage.execute = timed_execute
     corr.correlation = recording
     s2d_conv.reset_counts()
-    corr.launches = 0
-    corr.route_counts.update(dict.fromkeys(corr.route_counts, 0))
+    corr.reset_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -2046,9 +2045,9 @@ def _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
         with open(log_path, "w") as log:
             log.write(out.getvalue())
     wall = time.perf_counter() - t0
-    launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    launches = s2d_conv.launch_counts()
     conv_routes = dict(s2d_conv.route_counts)
-    corr_launches, corr_routes = corr.launches, dict(corr.route_counts)
+    corr_launches, corr_routes = corr.launch_count(), dict(corr.route_counts)
 
     # the artifact tree of tests/test_pipeline_e2e.py::test_full_pipeline
     range_dir = os.path.dirname(tag_dir)
@@ -2381,7 +2380,7 @@ def _backbone_checks(torch, smi, name, training, s2d_conv, mods, LossWeights,
     with recording_convs(s2d_conv, step_fwd, gx_classes):
         first32, depth32 = eng32._step(data, *eng32._indices(idx0, valid0))
         torch.cuda.synchronize()
-    first_launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    first_launches = s2d_conv.launch_counts()
     first_routes = dict(s2d_conv.route_counts)
     grads32 = grads_of(eng32)
     loss32 = float(first32["loss"])
@@ -2653,7 +2652,7 @@ def _backbone_checks(torch, smi, name, training, s2d_conv, mods, LossWeights,
     out16 = server.infer_videos(videos)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    serve_launches = s2d_conv.launches
+    serve_launches = s2d_conv.launch_counts()[0]
     del server
     server32 = DepthServer(ServeConfig(model_type=name, precision="f32",
                                        batch_size=BATCH, device=device))
@@ -2715,7 +2714,7 @@ def backbone_cli(torch, name, s2d_conv, mods, cli_dir, n_fwd, n_gx,
                                f"chip_smoke_cli_{name}.log"), "w") as log:
             log.write(out.getvalue())
     wall = time.perf_counter() - t0
-    launches = (s2d_conv.launches, s2d_conv.grad_input_launches)
+    launches = s2d_conv.launch_counts()
     routes = dict(s2d_conv.route_counts)
     n = CLI_FRAMES
     range_dir = os.path.dirname(tag_dir)
@@ -2824,7 +2823,7 @@ def mesh_work(torch, mods, init_sd, workload, mesh, device):
         s2d_conv.reset_counts()
         steps = [eng.train_step(data, idx, valid) for idx, valid in batches]
         torch.cuda.synchronize(device)
-        run["launches"] = [s2d_conv.launches, s2d_conv.grad_input_launches]
+        run["launches"] = list(s2d_conv.launch_counts())
         run["routes"] = dict(s2d_conv.route_counts)
         run["losses"] = [float(m["loss"]) for m in steps]
         run["skipped"] = sum(bool(m["skipped_nan"]) for m in steps)
@@ -3217,7 +3216,7 @@ def _aux_checks(torch, smi, s2d_conv, init_sd, classes, per_forward,
         d_train = model.forward(images)
     sync()
     forward_s = time.perf_counter() - t0
-    launches = s2d_conv.launches
+    launches = s2d_conv.launch_counts()[0]
     routes = dict(s2d_conv.route_counts)
     n_fwd = 4
     want_routes = {f"forward_{r}": n * n_fwd for r, n in expected_routes(
@@ -3436,14 +3435,14 @@ def main() -> int:
     server.infer_videos(videos)            # warm-up
     torch.cuda.synchronize()
     s2d_conv.reset_counts()
-    corr.launches = 0
+    corr.reset_counts()
     t0 = time.perf_counter()
     out = server.infer_videos(videos)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = s2d_conv.launches
+    launches = s2d_conv.launch_counts()[0]
     serve_routes = dict(s2d_conv.route_counts)
-    serve_corr_launches = corr.launches
+    serve_corr_launches = corr.launch_count()
     want_routes = {f"forward_{r}": n * n_batches for r, n in expected_routes(
         s2d_conv, classes, torch.bfloat16, False).items()}
 
@@ -3538,15 +3537,15 @@ def main() -> int:
     # -- 6. the flow path: FlowNet2 at 448x1024, masks, visualisation -----
     backend.compute_pair(frames[0], frames[1])        # warm-up
     torch.cuda.synchronize()
-    s2d_conv.launches = corr.launches = 0
-    corr.route_counts.update(dict.fromkeys(corr.route_counts, 0))
+    s2d_conv.reset_counts()
+    corr.reset_counts()
     t0 = time.perf_counter()
     flows = [backend.compute_pair(frames[i], frames[j]) for i, j in FLOW_PAIRS]
     torch.cuda.synchronize()
     flow_dt = time.perf_counter() - t0
-    flow_launches = corr.launches
+    flow_launches = corr.launch_count()
     flow_routes = dict(corr.route_counts)
-    flow_conv_launches = s2d_conv.launches
+    flow_conv_launches = s2d_conv.launch_counts()[0]
 
     orig = corr.correlation
     corr.correlation = corr.correlation_reference

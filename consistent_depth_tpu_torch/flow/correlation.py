@@ -51,10 +51,19 @@ BANDED_CHUNK = 16
 # FlowNet2's (1, 56, 128, 256), r = 10, on an H100 (PERF.md section 6)
 DEFAULT_GROUP = 7
 
-# number of CUDA kernel launches made by :func:`correlation`, in all and
-# by route
-launches = 0
+# the CUDA kernel launches of :func:`correlation` by route
 route_counts = {"banded": 0, "generic": 0}
+
+
+def launch_count() -> int:
+    """The kernel launches of :func:`correlation`, all routes."""
+    return sum(route_counts.values())
+
+
+def reset_counts() -> None:
+    """Zero :data:`route_counts`."""
+    for key in route_counts:
+        route_counts[key] = 0
 
 
 class Plan(NamedTuple):
@@ -150,7 +159,6 @@ def _launch(f1: torch.Tensor, f2: torch.Tensor, r: int, stride: int,
             plan: Plan) -> torch.Tensor:
     """Launch ``plan``'s kernel on checked CUDA float32 inputs; a launch
     error raises."""
-    global launches
     B, H, W, C = f1.shape
     D = 2 * r + 1
     out = torch.empty((B, H, W, D * D), dtype=torch.float32,
@@ -170,6 +178,5 @@ def _launch(f1: torch.Tensor, f2: torch.Tensor, r: int, stride: int,
                 *ptrs, B, H, W, C, r, stride, *f1.stride(), *f2.stride(),
                 stream)
     _cuda.check(lib, err, f"correlation ({plan.route})")
-    launches += 1
     route_counts[plan.route] += 1
     return out

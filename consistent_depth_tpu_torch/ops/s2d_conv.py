@@ -41,7 +41,9 @@ one call, from the shapes alone. Layouts are the JAX package's: x NHWC
 x's dtype. Any strides are accepted, so channels_last activations and OIHW
 weights pass in as permuted views without a copy; the tensor-core routes
 copy a tensor whose channels are not contiguous or 16-byte aligned, and
-count the copy.
+count the copy. The forward, the grad-input and the grad-weight each run
+in a span of ``..utils.tracing`` (``kxk.forward``, ``kxk.grad_input``,
+``kxk.grad_weight``), on every device.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import _cuda
 
 # kernel sizes the CUDA kernels are instantiated for: those of the hourglass
@@ -145,24 +148,26 @@ _TC_ROUTE = {torch.bfloat16: "tc", torch.float32: "tf32"}
 SMS = 132
 MIN_BLOCKS = 2 * SMS
 
-# number of CUDA kernel launches made by :func:`same_conv` and by
-# :func:`same_conv_grad_input` (one per call, whatever the route)
-launches = 0
-grad_input_launches = 0
-# the same calls by route (ROUTES), the split-K reduction passes, the
-# tensors the tensor-core routes copied to make their channels contiguous
-# and aligned, and the launches of the "wgmma_tf32" weight split (one per
-# call on that route, and one per :func:`split_tf32` on the card)
+# the CUDA kernel launches of :func:`same_conv` and of
+# :func:`same_conv_grad_input` by route (ROUTES; one per call), the split-K
+# reduction passes, the tensors the tensor-core routes copied to make their
+# channels contiguous and aligned, and the launches of the "wgmma_tf32"
+# weight split (one per call on that route, and one per :func:`split_tf32`
+# on the card)
 route_counts = dict.fromkeys(
     [f"{d}_{r}" for d in ("forward", "grad_input") for r in ROUTES]
     + ["split_reduce", "layout_copies", "weight_split"], 0)
 
 
+def launch_counts() -> Tuple[int, int]:
+    """(forward, grad-input) conv launches: :data:`route_counts` summed
+    over each direction's routes."""
+    return tuple(sum(route_counts[f"{d}_{r}"] for r in ROUTES)
+                 for d in ("forward", "grad_input"))
+
+
 def reset_counts() -> None:
-    """Zero :data:`launches`, :data:`grad_input_launches` and
-    :data:`route_counts`."""
-    global launches, grad_input_launches
-    launches = grad_input_launches = 0
+    """Zero :data:`route_counts`."""
     for key in route_counts:
         route_counts[key] = 0
 
@@ -479,48 +484,47 @@ def _forward(x: torch.Tensor, w: torch.Tensor,
              bias: Optional[torch.Tensor]) -> torch.Tensor:
     """The conv with no autograd record: on CUDA the kernel of
     :func:`_plan`'s route, on the CPU the plain version."""
-    if x.device.type == "cpu":
-        return same_conv_reference(x, w, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"same_conv: unsupported device {x.device}")
-    N, H, W, Ci = x.shape
-    k, Co = w.shape[0], w.shape[3]
-    _check("same_conv", x, w, w.shape[2],
-           [bias] if bias is not None else [])
-    if bias is not None:
-        if bias.shape != (Co,):
-            raise ValueError(f"same_conv: bias shape {tuple(bias.shape)}")
-        bias = bias.contiguous()
+    with tracing.span(tracing.KXK_FORWARD):
+        if x.device.type == "cpu":
+            return same_conv_reference(x, w, bias)
+        if x.device.type != "cuda":
+            raise ValueError(f"same_conv: unsupported device {x.device}")
+        N, H, W, Ci = x.shape
+        k, Co = w.shape[0], w.shape[3]
+        _check("same_conv", x, w, w.shape[2],
+               [bias] if bias is not None else [])
+        if bias is not None:
+            if bias.shape != (Co,):
+                raise ValueError(f"same_conv: bias shape {tuple(bias.shape)}")
+            bias = bias.contiguous()
 
-    out = torch.empty((N, H, W, Co), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
+        out = torch.empty((N, H, W, Co), dtype=x.dtype, device=x.device)
+        if out.numel() == 0:
+            return out
+        route, tile_h, split = _plan(x.dtype, N, H, W, Ci, Co, k)
+        lib = _cuda.library()
+        with torch.cuda.device(x.device):
+            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+            if route != "fma":
+                x, w = _tc_operands(x, w, grad_input=False)
+                ws = _workspace(route, split, (N, H, W, Co), w, x.device)
+                err = getattr(lib, f"same_conv_{route}_forward")(
+                    x.data_ptr(), w.data_ptr(),
+                    bias.data_ptr() if bias is not None else None,
+                    out.data_ptr(), _DTYPE_CODES[x.dtype], N, H, W, Ci, Co, k,
+                    *x.stride(), *w.stride(), tile_h, split,
+                    ws.data_ptr() if ws is not None else None, stream)
+            else:
+                err = lib.same_conv_forward(
+                    x.data_ptr(), w.data_ptr(),
+                    bias.data_ptr() if bias is not None else None,
+                    out.data_ptr(), _DTYPE_CODES[x.dtype], N, H, W, Ci, Co, k,
+                    *x.stride(), *w.stride(), stream)
+        _cuda.check(lib, err, "same_conv")
+        route_counts["forward_" + route] += 1
+        route_counts["split_reduce"] += split > 1
+        route_counts["weight_split"] += route == "wgmma_tf32"
         return out
-    route, tile_h, split = _plan(x.dtype, N, H, W, Ci, Co, k)
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        if route != "fma":
-            x, w = _tc_operands(x, w, grad_input=False)
-            ws = _workspace(route, split, (N, H, W, Co), w, x.device)
-            err = getattr(lib, f"same_conv_{route}_forward")(
-                x.data_ptr(), w.data_ptr(),
-                bias.data_ptr() if bias is not None else None,
-                out.data_ptr(), _DTYPE_CODES[x.dtype], N, H, W, Ci, Co, k,
-                *x.stride(), *w.stride(), tile_h, split,
-                ws.data_ptr() if ws is not None else None, stream)
-        else:
-            err = lib.same_conv_forward(
-                x.data_ptr(), w.data_ptr(),
-                bias.data_ptr() if bias is not None else None,
-                out.data_ptr(), _DTYPE_CODES[x.dtype], N, H, W, Ci, Co, k,
-                *x.stride(), *w.stride(), stream)
-    _cuda.check(lib, err, "same_conv")
-    global launches
-    launches += 1
-    route_counts["forward_" + route] += 1
-    route_counts["split_reduce"] += split > 1
-    route_counts["weight_split"] += route == "wgmma_tf32"
-    return out
 
 
 def same_conv_grad_input(ct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -530,43 +534,42 @@ def same_conv_grad_input(ct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the kernel of :func:`_plan`'s route on the flipped, channel-swapped
     weight (a strided view, no copy), or raises if the kernel does not
     take the arguments."""
-    if ct.device.type == "cpu":
-        return same_conv_grad_input_reference(ct, w)
-    if ct.device.type != "cuda":
-        raise ValueError(f"same_conv_grad_input: unsupported device "
-                         f"{ct.device}")
-    N, H, W, Co = ct.shape
-    k, Ci = w.shape[0], w.shape[2]
-    _check("same_conv_grad_input", ct, w, w.shape[3])
+    with tracing.span(tracing.KXK_GRAD_INPUT):
+        if ct.device.type == "cpu":
+            return same_conv_grad_input_reference(ct, w)
+        if ct.device.type != "cuda":
+            raise ValueError(f"same_conv_grad_input: unsupported device "
+                             f"{ct.device}")
+        N, H, W, Co = ct.shape
+        k, Ci = w.shape[0], w.shape[2]
+        _check("same_conv_grad_input", ct, w, w.shape[3])
 
-    dx = torch.empty((N, H, W, Ci), dtype=ct.dtype, device=ct.device)
-    if dx.numel() == 0:
+        dx = torch.empty((N, H, W, Ci), dtype=ct.dtype, device=ct.device)
+        if dx.numel() == 0:
+            return dx
+        route, tile_h, split = _plan(ct.dtype, N, H, W, Ci, Co, k,
+                                     grad_input=True)
+        lib = _cuda.library()
+        with torch.cuda.device(ct.device):
+            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+            if route != "fma":
+                ct, w = _tc_operands(ct, w, grad_input=True)
+                ws = _workspace(route, split, (N, H, W, Ci), w, ct.device)
+                err = getattr(lib, f"same_conv_{route}_grad_input")(
+                    ct.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                    _DTYPE_CODES[ct.dtype], N, H, W, Ci, Co, k, *ct.stride(),
+                    *w.stride(), tile_h, split,
+                    ws.data_ptr() if ws is not None else None, stream)
+            else:
+                err = lib.same_conv_grad_input(
+                    ct.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                    _DTYPE_CODES[ct.dtype], N, H, W, Ci, Co, k, *ct.stride(),
+                    *w.stride(), stream)
+        _cuda.check(lib, err, "same_conv_grad_input")
+        route_counts["grad_input_" + route] += 1
+        route_counts["split_reduce"] += split > 1
+        route_counts["weight_split"] += route == "wgmma_tf32"
         return dx
-    route, tile_h, split = _plan(ct.dtype, N, H, W, Ci, Co, k,
-                                 grad_input=True)
-    lib = _cuda.library()
-    with torch.cuda.device(ct.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        if route != "fma":
-            ct, w = _tc_operands(ct, w, grad_input=True)
-            ws = _workspace(route, split, (N, H, W, Ci), w, ct.device)
-            err = getattr(lib, f"same_conv_{route}_grad_input")(
-                ct.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                _DTYPE_CODES[ct.dtype], N, H, W, Ci, Co, k, *ct.stride(),
-                *w.stride(), tile_h, split,
-                ws.data_ptr() if ws is not None else None, stream)
-        else:
-            err = lib.same_conv_grad_input(
-                ct.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                _DTYPE_CODES[ct.dtype], N, H, W, Ci, Co, k, *ct.stride(),
-                *w.stride(), stream)
-    _cuda.check(lib, err, "same_conv_grad_input")
-    global grad_input_launches
-    grad_input_launches += 1
-    route_counts["grad_input_" + route] += 1
-    route_counts["split_reduce"] += split > 1
-    route_counts["weight_split"] += route == "wgmma_tf32"
-    return dx
 
 
 class _SameConv(torch.autograd.Function):
@@ -590,11 +593,12 @@ class _SameConv(torch.autograd.Function):
             gx = same_conv_grad_input(ct, w)
         if ctx.needs_input_grad[1]:
             p = (w.shape[0] - 1) // 2
-            _, gw, _ = torch.ops.aten.convolution_backward(
-                ct.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
-                w.permute(3, 2, 0, 1), None, [1, 1], [p, p], [1, 1], False,
-                [0, 0], 1, [False, True, False])
-            gw = gw.permute(2, 3, 1, 0)
+            with tracing.span(tracing.KXK_GRAD_WEIGHT):
+                _, gw, _ = torch.ops.aten.convolution_backward(
+                    ct.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+                    w.permute(3, 2, 0, 1), None, [1, 1], [p, p], [1, 1],
+                    False, [0, 0], 1, [False, True, False])
+                gw = gw.permute(2, 3, 1, 0)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             gb = ct.sum((0, 1, 2), dtype=torch.float32).to(ct.dtype)
         return gx, gw, gb

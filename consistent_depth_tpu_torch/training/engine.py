@@ -38,6 +38,10 @@ global gradient, so that the NaN-skip (on the reduced gradients and the
 global loss) and the update are the same on every rank. The per-pair
 losses, the pair ids and the depths come back in the global (S, B) layout.
 ``infer`` runs no collective, as the JAX engine's unsharded ``infer``.
+
+Spans (``..utils.tracing``, off by default) name each epoch call, each
+step and its gather, forward, loss, backward and optimizer, and each eval
+batch with its forward, loss and depth scatter.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ..models.layers import convert_global_batch_norm
 from ..ops.losses import LossWeights, joint_loss
 from ..parallel.mesh import (
     Mesh, all_gather_batch, put_replicated, shard_batch)
+from ..utils import tracing
 from .optimizer import OptimizerFactory
 
 # the metrics that hold one value per pair of the batch
@@ -219,15 +224,19 @@ class TrainingEngine:
         return metrics
 
     def _loss(self, batch: Mapping[str, torch.Tensor], valid: torch.Tensor,
-              train: bool):
+              train: bool, spans=(tracing.EVAL_FORWARD, tracing.EVAL_LOSS)):
         """(loss, per-pair losses, depth) of one batch; ``train`` picks
-        train-mode BN (batch statistics, running-stat update)."""
-        depth = self.model.apply(batch["images"], scales=batch.get("scales"),
-                                 train=train)
-        loss, batch_losses = joint_loss(
-            depth, batch["intrinsics"], batch["extrinsics"], batch["flows"],
-            batch["masks"], self.weights, params=self.params,
-            params_init=self.params_init, valid=valid, mesh=self.mesh)
+        train-mode BN (batch statistics, running-stat update), ``spans``
+        names the forward's and the loss's spans."""
+        with tracing.span(spans[0]):
+            depth = self.model.apply(batch["images"],
+                                     scales=batch.get("scales"), train=train)
+        with tracing.span(spans[1]):
+            loss, batch_losses = joint_loss(
+                depth, batch["intrinsics"], batch["extrinsics"],
+                batch["flows"], batch["masks"], self.weights,
+                params=self.params, params_init=self.params_init,
+                valid=valid, mesh=self.mesh)
         return loss, batch_losses, depth
 
     # -- training ---------------------------------------------------------
@@ -235,44 +244,57 @@ class TrainingEngine:
               valid: torch.Tensor):
         """One optimizer step on device index tensors; returns its metrics
         and the batch's depth (B, 2, H, W), all on the device."""
-        batch = gather_batch(data, idx)
-        if self.mesh is None:
-            self.optimizer.zero_grad(set_to_none=True)
-        else:
-            # the backward accumulates into the views of the flat buffer
-            self._grad_flat.zero_()
-            for p, g in zip(self.params.values(), self._grad_views):
-                p.grad = g
-        loss, batch_losses, depth = self._loss(batch, valid, train=True)
-        loss.backward()
-        if self.mesh is not None:
-            dist.all_reduce(self._grad_flat, group=self.mesh.group)
-        # a parameter outside the forward (MiDaS's refinenet4.resConfUnit1)
-        # gets an exact zero gradient, as JAX gives it: the optimizers then
-        # treat it as optax does (Adam leaves it, AdamW still decays it)
-        # where a None gradient would make them skip it (under a mesh the
-        # flat buffer holds its zeros)
-        for p in self.params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        # skip on a non-finite loss AND on non-finite gradients: a finite
-        # loss can still carry 0*inf gradients through the 1/z backward
-        # at degenerate depths. One multi-tensor pass over the gradients
-        # (the check of torch.amp's GradScaler, at scale 1, which leaves
-        # every finite value as it is) sets ``found`` to 1 on any NaN/inf;
-        # the fused optimizer then skips its update where it is 1.
-        grads = [p.grad for p in self.params.values()]
-        found = torch.zeros((), device=loss.device)
-        torch._amp_foreach_non_finite_check_and_unscale_(
-            grads, found, torch.ones((), device=loss.device))
-        found = torch.maximum(found, (~torch.isfinite(loss.detach())).float())
-        self.optimizer.grad_scale = None
-        self.optimizer.found_inf = found
-        self.optimizer.step()
-        self.step += 1
-        metrics = {"loss": loss.detach(), "skipped_nan": found > 0,
-                   **{k: v.detach() for k, v in batch_losses.items()}}
-        return metrics, depth.detach()
+        with tracing.span(tracing.STEP, self.step):
+            with tracing.span(tracing.STEP_GATHER):
+                batch = gather_batch(data, idx)
+            if self.mesh is None:
+                self.optimizer.zero_grad(set_to_none=True)
+            else:
+                # the backward accumulates into the views of the flat buffer
+                self._grad_flat.zero_()
+                for p, g in zip(self.params.values(), self._grad_views):
+                    p.grad = g
+            loss, batch_losses, depth = self._loss(
+                batch, valid, train=True,
+                spans=(tracing.STEP_FORWARD, tracing.STEP_LOSS))
+            with tracing.span(tracing.STEP_BACKWARD):
+                loss.backward()
+            if self.mesh is not None:
+                dist.all_reduce(self._grad_flat, group=self.mesh.group)
+            with tracing.span(tracing.STEP_OPTIMIZER):
+                # a parameter outside the forward (MiDaS's
+                # refinenet4.resConfUnit1) gets an exact zero gradient, as
+                # JAX gives it: the optimizers then treat it as optax does
+                # (Adam leaves it, AdamW still decays it) where a None
+                # gradient would make them skip it (under a mesh the flat
+                # buffer holds its zeros)
+                for p in self.params.values():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                # skip on a non-finite loss AND on non-finite gradients: a
+                # finite loss can still carry 0*inf gradients through the
+                # 1/z backward at degenerate depths. One multi-tensor pass
+                # over the gradients (the check of torch.amp's GradScaler,
+                # at scale 1, which leaves every finite value as it is)
+                # sets ``found`` to 1 on any NaN/inf; the fused optimizer
+                # then skips its update where it is 1.
+                grads = [p.grad for p in self.params.values()]
+                found = torch.zeros((), device=loss.device)
+                torch._amp_foreach_non_finite_check_and_unscale_(
+                    grads, found, torch.ones((), device=loss.device))
+                found = torch.maximum(
+                    found, (~torch.isfinite(loss.detach())).float())
+                self.optimizer.grad_scale = None
+                self.optimizer.found_inf = found
+                self.optimizer.step()
+                # the flag's kernel, after the update's, closes the span's
+                # device-side range past the update (whose kernels run in
+                # torch's own Optimizer.step range)
+                skipped = found > 0
+            self.step += 1
+            metrics = {"loss": loss.detach(), "skipped_nan": skipped,
+                       **{k: v.detach() for k, v in batch_losses.items()}}
+            return metrics, depth.detach()
 
     def train_step(self, data: Mapping[str, torch.Tensor], idx,
                    valid) -> Dict[str, torch.Tensor]:
@@ -306,23 +328,25 @@ class TrainingEngine:
             and ``captured_depth`` (CAPTURE_SLOTS, B, 2, H, W), f16 under
             bf16 and f32 otherwise.
         """
-        self._policy()
-        idx_t, valid_t = self._indices(idx, valid)
-        S, B = idx_t.shape
-        H, W = data["frames"].shape[1:3]
-        cap = torch.zeros((self.CAPTURE_SLOTS, B, 2, H, W),
-                          dtype=self._dump_dtype, device=self.model.device)
-        idx_r, valid_r = self._shard(idx_t, 1), self._shard(valid_t, 1)
-        per_step = []
-        for s in range(S):
-            metrics, depth = self._step(data, idx_r[s], valid_r[s])
-            slot = -1 if capture_slot is None else int(capture_slot[s])
-            if 0 <= slot < self.CAPTURE_SLOTS:
-                cap[slot].copy_(self._gather(depth.to(cap.dtype)))
-            per_step.append(metrics)
-        out = self._gather_pairs(_stack(per_step), 1)
-        out["captured_depth"] = cap
-        return out
+        with tracing.span(tracing.TRAIN_EPOCH):
+            self._policy()
+            idx_t, valid_t = self._indices(idx, valid)
+            S, B = idx_t.shape
+            H, W = data["frames"].shape[1:3]
+            cap = torch.zeros((self.CAPTURE_SLOTS, B, 2, H, W),
+                              dtype=self._dump_dtype,
+                              device=self.model.device)
+            idx_r, valid_r = self._shard(idx_t, 1), self._shard(valid_t, 1)
+            per_step = []
+            for s in range(S):
+                metrics, depth = self._step(data, idx_r[s], valid_r[s])
+                slot = -1 if capture_slot is None else int(capture_slot[s])
+                if 0 <= slot < self.CAPTURE_SLOTS:
+                    cap[slot].copy_(self._gather(depth.to(cap.dtype)))
+                per_step.append(metrics)
+            out = self._gather_pairs(_stack(per_step), 1)
+            out["captured_depth"] = cap
+            return out
 
     # -- validation -------------------------------------------------------
     @torch.no_grad()
@@ -358,11 +382,12 @@ class TrainingEngine:
             (num_frames, H, W), f16 under bf16, and ``frames_seen``
             (num_frames,).
         """
-        self._policy()
-        idx_t, valid_t = self._indices(idx, valid)
-        if self.eval_dedup:
-            return self._eval_epoch_dedup(data, idx_t, valid_t)
-        return self._eval_epoch_paired(data, idx_t, valid_t)
+        with tracing.span(tracing.EVAL_EPOCH):
+            self._policy()
+            idx_t, valid_t = self._indices(idx, valid)
+            if self.eval_dedup:
+                return self._eval_epoch_dedup(data, idx_t, valid_t)
+            return self._eval_epoch_paired(data, idx_t, valid_t)
 
     def _eval_epoch_paired(self, data, idx, valid):
         """The reference's validation loop (JAX engine :292-338): a
@@ -388,18 +413,22 @@ class TrainingEngine:
         idx_r, valid_r = self._shard(idx, 1), self._shard(valid, 1)
         per_step = []
         for s in range(idx.shape[0]):
-            m = self._eval_batch(data, idx_r[s], valid_r[s])
-            m["pair_ids"] = data["pair_ids"][idx[s]]
-            flat = self._gather(m.pop("depth").to(buf.dtype)).reshape(
-                n, H, W)
-            slots = data["pair_slots"][idx[s]].reshape(n).long()
-            ok = (valid[s] > 0)[:, None].expand(-1, 2).reshape(n)
-            repeated = ((slots[:, None] == slots[None, :]) & earlier
-                        & ok[None, :]).any(1)
-            take = ok & ~repeated & ~seen[slots]
-            buf.index_copy_(0, torch.where(take, slots, n_frames), flat)
-            seen.index_fill_(0, torch.where(ok, slots, n_frames), True)
-            per_step.append(m)
+            with tracing.span(tracing.EVAL_BATCH):
+                m = self._eval_batch(data, idx_r[s], valid_r[s])
+                m["pair_ids"] = data["pair_ids"][idx[s]]
+                flat = self._gather(m.pop("depth").to(buf.dtype)).reshape(
+                    n, H, W)
+                with tracing.span(tracing.EVAL_DEPTH_SCATTER):
+                    slots = data["pair_slots"][idx[s]].reshape(n).long()
+                    ok = (valid[s] > 0)[:, None].expand(-1, 2).reshape(n)
+                    repeated = ((slots[:, None] == slots[None, :]) & earlier
+                                & ok[None, :]).any(1)
+                    take = ok & ~repeated & ~seen[slots]
+                    buf.index_copy_(0, torch.where(take, slots, n_frames),
+                                    flat)
+                    seen.index_fill_(0, torch.where(ok, slots, n_frames),
+                                     True)
+                per_step.append(m)
         out = self._gather_pairs(_stack(per_step), 1)
         out["depth_frames"] = buf[:n_frames]
         out["frames_seen"] = seen[:n_frames]
@@ -456,7 +485,8 @@ class TrainingEngine:
             slots = frame_idx[c]
             images = data["frames"][torch.clamp(slots, max=n_frames - 1)]
             scales = frame_scales[slots] if frame_scales is not None else None
-            depth = self.model.apply(images, scales=scales, train=True)
+            with tracing.span(tracing.EVAL_FORWARD):
+                depth = self.model.apply(images, scales=scales, train=True)
             buf.index_copy_(0, slots.reshape(-1),
                             depth.float().reshape(slots.numel(), H, W))
         if self.mesh is not None:
@@ -465,16 +495,18 @@ class TrainingEngine:
         idx_r, valid_r = self._shard(idx, 1), self._shard(valid, 1)
         per_step = []
         for s in range(S):
-            i = idx_r[s]
-            depth = buf[data["pair_slots"][i].long()]          # (B, 2, H, W)
-            loss, batch_losses = joint_loss(
-                depth, data["intrinsics"][i], data["extrinsics"][i],
-                data["flows"][i], data["masks"][i], self.weights,
-                params=self.params, params_init=self.params_init,
-                valid=valid_r[s], mesh=self.mesh)
-            per_step.append({"loss": loss,
-                             "pair_ids": data["pair_ids"][idx[s]],
-                             **batch_losses})
+            with tracing.span(tracing.EVAL_BATCH):
+                i = idx_r[s]
+                depth = buf[data["pair_slots"][i].long()]      # (B, 2, H, W)
+                with tracing.span(tracing.EVAL_LOSS):
+                    loss, batch_losses = joint_loss(
+                        depth, data["intrinsics"][i], data["extrinsics"][i],
+                        data["flows"][i], data["masks"][i], self.weights,
+                        params=self.params, params_init=self.params_init,
+                        valid=valid_r[s], mesh=self.mesh)
+                per_step.append({"loss": loss,
+                                 "pair_ids": data["pair_ids"][idx[s]],
+                                 **batch_losses})
         out = self._gather_pairs(_stack(per_step), 1)
         # frames_seen: frames of any VALID pair, as the paired pass
         slots = data["pair_slots"][idx.reshape(-1)].reshape(-1).long()

@@ -33,6 +33,7 @@ loads rank 0's ``full_{epoch}/state.pt`` on every rank.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -50,7 +51,7 @@ from ..models import torch_import
 from ..models.registry import get_depth_model
 from ..ops.losses import LossWeights
 from ..parallel.mesh import Mesh, launched_mesh
-from ..utils import visualization
+from ..utils import tracing, visualization
 from . import checkpoints as ckpt
 from . import optimizer as optimizer_registry
 from .engine import TrainingEngine, gather_batch
@@ -102,7 +103,8 @@ class DepthFineTuningParams:
         parser.add_argument(
             "--profile_dir", default=None,
             help="If set, write a torch.profiler trace of the first epoch "
-                 "into this directory.")
+                 "into this directory, with the port's spans "
+                 "(utils/tracing.py) on.")
         parser.add_argument(
             "--precision", choices=["f32", "bf16"], default="f32",
             help="Backbone conv compute dtype. f32 matches the "
@@ -353,7 +355,7 @@ class DepthFineTuner:
                        if self.writes else None)
         # profiling wants a clean trace of one epoch: no overlap
         in_flight = 0 if profile_dir else 1
-        prof = None
+        profiling = None
 
         if start_epoch == 0:
             pending.append(dispatch_validate(0, 0))
@@ -361,7 +363,7 @@ class DepthFineTuner:
         for epoch in range(start_epoch, self.params.num_epochs):
             if profile_dir and epoch == start_epoch:
                 run_pending(0)
-                prof = _start_profiler(self.model.device)
+                profiling = _start_profiler(self.model.device)
             epoch_start_time = time.perf_counter()
 
             steps = list(it.epoch(epoch))
@@ -463,10 +465,10 @@ class DepthFineTuner:
                 pending.append(process)
             run_pending(in_flight)
 
-            if prof is not None and epoch == start_epoch:
+            if profiling is not None and epoch == start_epoch:
                 run_pending(0)
-                _stop_profiler(prof, self.model.device, profile_dir)
-                prof = None
+                _stop_profiler(profiling, self.model.device, profile_dir)
+                profiling = None
 
         run_pending(0)
         if self.params.num_epochs % self.params.val_epoch_freq != 0:
@@ -599,19 +601,22 @@ class DepthFineTuner:
 
 
 def _start_profiler(device: torch.device):
+    """A running profiler with the port's spans on, and the stack that
+    stops both."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    prof.start()
-    return prof
+    stack = contextlib.ExitStack()
+    stack.enter_context(tracing.enabled())
+    return stack.enter_context(profile(activities=activities)), stack
 
 
-def _stop_profiler(prof, device: torch.device, profile_dir: str) -> None:
+def _stop_profiler(profiling, device: torch.device, profile_dir: str) -> None:
+    prof, stack = profiling
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    prof.stop()
+    stack.close()
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(pjoin(profile_dir, "trace.json"))

@@ -1,1 +1,2 @@
-"""Host-side helpers of the port: frame ranges and pair sampling."""
+"""Host-side helpers of the port: frame ranges and pair sampling, and the
+spans of :mod:`.tracing`."""

@@ -88,11 +88,20 @@ def test_cpu_takes_reference():
     """On CPU tensors the wrapper is the plain version and launches
     nothing."""
     f1, f2 = (torch.from_numpy(f) for f in _features((1, 5, 6, 3), seed=2))
-    before = corr.launches, dict(corr.route_counts)
+    before = corr.launch_count(), dict(corr.route_counts)
     torch.testing.assert_close(corr.correlation(f1, f2, 4, 2),
                                corr.correlation_reference(f1, f2, 4, 2),
                                rtol=0, atol=0)
-    assert (corr.launches, corr.route_counts) == before
+    assert (corr.launch_count(), corr.route_counts) == before
+
+
+def test_counts_reset():
+    corr.route_counts["banded"] += 2
+    corr.route_counts["generic"] += 1
+    assert corr.launch_count() >= 3
+    corr.reset_counts()
+    assert corr.launch_count() == 0
+    assert set(corr.route_counts.values()) == {0}
 
 
 def test_rejects_bad_arguments():

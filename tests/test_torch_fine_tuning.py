@@ -51,6 +51,7 @@ from consistent_depth_tpu_torch.models.mannequin_challenge import (
     MannequinChallengeModel)
 from consistent_depth_tpu_torch.training import (
     DepthFineTuner, capture_slots, make_tag)
+from consistent_depth_tpu_torch.utils import tracing
 
 sys.path.insert(0, pjoin(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
@@ -229,6 +230,22 @@ def test_resume_matches_uninterrupted_run(runs, capsys):
     for i, s in whole.optimizer.state_dict()["state"].items():
         for n, v in s.items():
             assert torch.equal(opt[i][n], v), (i, n)
+
+
+def test_profile_dir_trace_carries_spans(runs, tmp_path):
+    """``--profile_dir`` writes a chrome trace of the first epoch that
+    carries the port's spans (the engine's and the k x k conv's), with
+    tracing on for that epoch alone."""
+    params = _params(runs["path"], runs["checkpoint"], 1)
+    params.profile_dir = str(tmp_path / "profile")
+    DepthFineTuner(_range_dir(runs["path"], "R_profile"), FRAMES, params,
+                   device="cpu").fine_tune()
+    assert not tracing._on
+    with open(pjoin(params.profile_dir, "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {tracing.TRAIN_EPOCH, tracing.STEP, tracing.STEP_OPTIMIZER,
+            tracing.KXK_FORWARD, tracing.KXK_GRAD_WEIGHT,
+            tracing.EVAL_BATCH} <= names
 
 
 def test_capture_slots_rule():
