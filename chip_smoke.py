@@ -209,6 +209,18 @@ Phases, each printing one JSON line:
    CPU (1 level); ``calibrate_w_sparse_colmap`` on a sparse model of the
    plane scene at 1/2.75 its size written by the port's ``write_model``,
    recovering 2.75 (1e-5) for the frames that have a depth file.
+16. grouped: the grouped 3x3 conv's f32 grad-weight kernel
+   (``ops/grouped_conv.py``, ``csrc/grouped_wgrad.cu``) at each of midas2's
+   7 classes (ResNeXt-101 32x8d's ``Bottleneck.conv2`` at batch 8 and
+   224x384), TF32 off: the kernel and cuDNN's wgrad against the plain
+   version's f64 result on the card (the kernel within
+   TOL_GROUPED_VS_LIBRARY times cuDNN's error), two calls bitwise equal, no
+   layout copy; the kernel's device time alone, the plain version's,
+   cuDNN's at its default pick and, from a process of its own
+   (``--grouped-library-benchmark``), under ``cudnn.benchmark``; each
+   class's bound; the kernel faster than both cuDNN picks. Its launches
+   are counted in phase 12's midas2 runs: BACKBONE_GROUPED a f32 step (the
+   first step, the timed steps, the CLI's), none in bf16.
 
 Then the card's name and power limit as nvidia-smi prints them, a
 ``{"kernels": [...]}`` line, whose launches add up each path's run
@@ -222,7 +234,9 @@ epoch per precision, phase 11, phase 14's mesh ranks (``mesh``) and
 phase 15's forwards (``aux``), with the times of mc's classes; for each
 backbone's entries (``same_conv_midas2``, ...) its timed steps and CLI run,
 with the times of its own classes; phase 6 and phase 11 for the
-correlation. Last comes ``{"ok": true, "device": {...}}``.
+correlation; ``grouped_wgrad``, phase 12's midas2 f32 timed steps and CLI
+run, with phase 16's per-step times of its classes. Last comes
+``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 
 Usage, from the root of a checkout: ``python3 chip_smoke.py``
@@ -410,6 +424,9 @@ MIDAS_TAME = 5.0
 # (2.7e-4); cuDNN's f32 1x1 convs carry it (tools/
 # torch_backbone_precision.py, PERF.md section 6)
 BACKBONE_CONVS = {"midas2": (20, 20), "monodepth2": (13, 13)}
+# grouped grad-weight launches per f32 train step (ops/grouped_conv.py):
+# midas2's 33 Bottleneck.conv2; bf16 keeps them on cuDNN
+BACKBONE_GROUPED = {"midas2": 33, "monodepth2": 0}
 MONODEPTH2_DIR = "monodepth2_mono+stereo_1024x320"
 MONODEPTH2_FEED = (320, 1024)
 # the CLI on phase 11's directory, one epoch, at each backbone's defaults
@@ -440,6 +457,18 @@ TOL_MESH_LATER_LOSS = 1e-3
 # reassociate, and train-mode BN amplifies that through ~70 layers)
 TOL_MESH_PARAMS = 5e-2
 MESH_DIR = os.path.join(REPO, "build", "chip_smoke_mesh")
+# grouped grad-weight path (phase 16): midas2's classes of grouped 3x3 conv
+# (ResNeXt-101 32x8d's Bottleneck.conv2, 32 groups) at batch 8 and 224x384,
+# as (channels, stride, input height, input width, convs per step)
+GROUPED_CLASSES = [(256, 1, 56, 96, 3), (512, 2, 56, 96, 1),
+                   (512, 1, 28, 48, 3), (1024, 2, 28, 48, 1),
+                   (1024, 1, 14, 24, 22), (2048, 2, 14, 24, 1),
+                   (2048, 1, 7, 12, 2)]
+GROUPED_GROUPS = 32
+# the kernel's error against the f64 result on the card, max |d| / max
+# |f64|, may be at most this many times the library's kernel's error on
+# the same inputs
+TOL_GROUPED_VS_LIBRARY = 2.0
 
 
 def require(cond, what: str) -> None:
@@ -498,15 +527,24 @@ def recording_convs(s2d_conv, fwd, gx):
 @contextmanager
 def plain_convs(s2d_conv):
     """Inside the block the routed convs take their plain versions
-    (``same_conv_reference`` and its grad-input) in place of the
-    kernels."""
-    orig = (s2d_conv.same_conv, s2d_conv.same_conv_grad_input)
+    (``same_conv_reference`` and its grad-input) in place of the kernels,
+    and so does the grouped convs' grad-weight
+    (``grouped_conv_grad_weight_reference``)."""
+    from consistent_depth_tpu_torch.ops import grouped_conv as gc
+
+    def grouped_plain(x, dy, w, stride, groups):
+        return gc.grouped_conv_grad_weight_reference(x, dy, stride, groups)
+
+    orig = (s2d_conv.same_conv, s2d_conv.same_conv_grad_input,
+            gc.grouped_conv_grad_weight)
     s2d_conv.same_conv = s2d_conv.same_conv_reference
     s2d_conv.same_conv_grad_input = s2d_conv.same_conv_grad_input_reference
+    gc.grouped_conv_grad_weight = grouped_plain
     try:
         yield
     finally:
-        s2d_conv.same_conv, s2d_conv.same_conv_grad_input = orig
+        (s2d_conv.same_conv, s2d_conv.same_conv_grad_input,
+         gc.grouped_conv_grad_weight) = orig
 
 
 def record_conv_classes(torch, s2d_conv, model, batch=BATCH, size=SIZE):
@@ -1121,6 +1159,21 @@ def trace_summary(prof, window: str, ranges):
     return 1.0 - busy / (hi - lo), by_name, in_ranges
 
 
+def conv_routes(s2d_conv):
+    """A copy of the k x k conv's launches by route, with the grouped
+    grad-weight kernel's launches as ``"grouped_wgrad"``."""
+    from consistent_depth_tpu_torch.ops import grouped_conv as gc
+    return {**s2d_conv.route_counts,
+            "grouped_wgrad": gc.route_counts["kernel"]}
+
+
+def reset_conv_counts(s2d_conv):
+    """Zero the counts that :func:`conv_routes` reads."""
+    from consistent_depth_tpu_torch.ops import grouped_conv as gc
+    s2d_conv.reset_counts()
+    gc.reset_counts()
+
+
 def drive_train(torch, engine, data, batches, s2d_conv):
     """The train path's timed run: warm-up steps, then the timed steps
     with the launch counts zeroed just before and read just after."""
@@ -1132,7 +1185,7 @@ def drive_train(torch, engine, data, batches, s2d_conv):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     skipped = []
-    s2d_conv.reset_counts()
+    reset_conv_counts(s2d_conv)
     t0 = time.perf_counter()
     start.record()
     for idx, valid in timed:
@@ -1153,7 +1206,7 @@ def drive_train(torch, engine, data, batches, s2d_conv):
         "skipped": int(sum(bool(s) for s in skipped)),
         "same_conv_launches": launches[0],
         "grad_input_launches": launches[1],
-        "route_counts": dict(s2d_conv.route_counts),
+        "route_counts": conv_routes(s2d_conv),
     }
 
 
@@ -1439,9 +1492,11 @@ def train_path(torch, smi, classes, training, s2d_conv,
                 f"{run['grad_input_launches']} launches in "
                 f"{run['steps']} steps")
         require(all(run["route_counts"][k] == v * run["steps"]
-                    for k, v in routes[name].items()),
+                    for k, v in routes[name].items())
+                and run["route_counts"]["grouped_wgrad"] == 0,
                 f"{name}: routes {run['route_counts']} in {run['steps']} "
-                f"steps, expected {routes[name]} per step")
+                f"steps, expected {routes[name]} per step and no grouped "
+                "grad-weight")
     context = {"engines": {"bf16": eng16, "f32": eng32}, "data": data,
                "routes": routes, "n_pairs": n_pairs, "init_sd": init_sd}
     return gx_rows, context
@@ -2348,9 +2403,12 @@ def backbone_path(torch, smi, name, training, s2d_conv, mods, LossWeights,
 def _backbone_checks(torch, smi, name, training, s2d_conv, mods, LossWeights,
                      DepthServer, ServeConfig, data, cli_dir, device,
                      seed_s, untamed):
+    from consistent_depth_tpu_torch.ops import grouped_conv as gc
+
     create = mods["create_depth_model"]
     cls = mods["get_depth_model"](name)
     n_fwd, n_gx = BACKBONE_CONVS[name]
+    n_grouped = BACKBONE_GROUPED[name]
     record = {"phase": "backbone", "backbone": name, "weights_s": seed_s,
               "nvidia_smi": smi}
 
@@ -2376,19 +2434,21 @@ def _backbone_checks(torch, smi, name, training, s2d_conv, mods, LossWeights,
     eng32 = make_engine("f32")
     bias0 = output_bias(name, eng32.model)
     step_fwd, gx_classes = Counter(), Counter()
-    s2d_conv.reset_counts()
+    reset_conv_counts(s2d_conv)
     with recording_convs(s2d_conv, step_fwd, gx_classes):
         first32, depth32 = eng32._step(data, *eng32._indices(idx0, valid0))
         torch.cuda.synchronize()
     first_launches = s2d_conv.launch_counts()
-    first_routes = dict(s2d_conv.route_counts)
+    first_routes = conv_routes(s2d_conv)
+    first_grouped_copies = gc.route_counts["layout_copies"]
     grads32 = grads_of(eng32)
     loss32 = float(first32["loss"])
     routes = {}
     for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         routes[dt_name] = {
             **route_counts_of(s2d_conv, fwd_classes, dt, False),
-            **route_counts_of(s2d_conv, gx_classes, dt, True)}
+            **route_counts_of(s2d_conv, gx_classes, dt, True),
+            "grouped_wgrad": n_grouped if dt_name == "f32" else 0}
     rows = []
     classes = [("forward", k[0], k[1], k[2], c)
                for k, c in sorted(fwd_classes.items())]
@@ -2409,6 +2469,7 @@ def _backbone_checks(torch, smi, name, training, s2d_conv, mods, LossWeights,
         "first_step_launches": list(first_launches),
         "expected_launches": [n_fwd, n_gx],
         "first_step_routes": first_routes, "expected_routes": routes["f32"],
+        "first_step_grouped_layout_copies": first_grouped_copies,
         "per_forward_ms": conv_totals(
             [r for r in rows if r["direction"] == "forward"], "count"),
         "per_step_grad_input_ms": conv_totals(
@@ -2428,8 +2489,10 @@ def _backbone_checks(torch, smi, name, training, s2d_conv, mods, LossWeights,
     require(first_launches == (n_fwd, n_gx),
             f"{name}: one step made {first_launches} launches, expected "
             f"{(n_fwd, n_gx)}")
-    require(all(first_routes[k] == v for k, v in routes["f32"].items()),
-            f"{name}: one f32 step took routes {first_routes}")
+    require(all(first_routes[k] == v for k, v in routes["f32"].items())
+            and first_grouped_copies == 0,
+            f"{name}: one f32 step took routes {first_routes} with "
+            f"{first_grouped_copies} grouped layout copies")
 
     # -- the f32 step with the kernels against plain -----------------------
     # (and the step's forward: midas2's disparity less its output bias)
@@ -2703,7 +2766,7 @@ def backbone_cli(torch, name, s2d_conv, mods, cli_dir, n_fwd, n_gx,
     args = ["--path", cli_dir, "--model_type", name, "--num_epochs",
             str(BACKBONE_CLI_EPOCHS)]
     out = io.StringIO()
-    s2d_conv.reset_counts()
+    reset_conv_counts(s2d_conv)
     t0 = time.perf_counter()
     try:
         with redirect_stdout(out):
@@ -2715,7 +2778,7 @@ def backbone_cli(torch, name, s2d_conv, mods, cli_dir, n_fwd, n_gx,
             log.write(out.getvalue())
     wall = time.perf_counter() - t0
     launches = s2d_conv.launch_counts()
-    routes = dict(s2d_conv.route_counts)
+    routes = conv_routes(s2d_conv)
     n = CLI_FRAMES
     range_dir = os.path.dirname(tag_dir)
     depth_files = [os.path.join(d, "depth", f"frame_{i:06d}.raw")
@@ -3327,6 +3390,164 @@ def _aux_checks(torch, smi, s2d_conv, init_sd, classes, per_forward,
     return routes
 
 
+def grouped_bound(C, stride, H, W):
+    """(GFLOP, bound ms, what bounds it, FMA-pipe ms) of one f32 grouped
+    grad-weight call at batch BATCH: its FLOP, 2 C Cg 9 N Ho Wo, over the
+    3xTF32 peak (PERF.md section 3's rule) against x and the cotangent read
+    once and dW written once over HBM_BYTES_PER_S; and its FLOP over the
+    f32 FMA pipes' peak."""
+    cg = C // GROUPED_GROUPS
+    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    flop = 2 * C * cg * 9 * BATCH * ho * wo
+    nbytes = 4 * (BATCH * C * (H * W + ho * wo) + C * cg * 9)
+    t_flop = flop / (PEAK_TFLOPS["tf32"] / 3 * 1e12) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (flop / 1e9, max(t_flop, t_bytes),
+            "operations" if t_flop >= t_bytes else "bytes",
+            flop / (PEAK_TFLOPS["f32"] * 1e12) * 1e3)
+
+
+def grouped_inputs(torch, C, stride, H, W, seed):
+    """x (BATCH, C, H, W), its cotangent and a weight of the class, f32
+    channels_last, N(0, 1) from ``seed`` (the weight's values unused)."""
+    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cl = torch.channels_last
+    x = torch.randn((BATCH, C, H, W), generator=g, device="cuda")
+    dy = torch.randn((BATCH, C, ho, wo), generator=g, device="cuda")
+    w = torch.zeros((C, C // GROUPED_GROUPS, 3, 3), device="cuda")
+    return (x.to(memory_format=cl), dy.to(memory_format=cl),
+            w.to(memory_format=cl))
+
+
+def grouped_library(torch, x, dy, w, stride):
+    """The library's grouped grad-weight (cuDNN's wgrad through
+    ``aten.convolution_backward``)."""
+    return torch.ops.aten.convolution_backward(
+        dy, x, w, None, [stride, stride], [1, 1], [1, 1], False, [0, 0],
+        GROUPED_GROUPS, [False, True, False])[1]
+
+
+def grouped_library_benchmark() -> int:
+    """The library's grouped grad-weight at each of GROUPED_CLASSES, f32
+    (TF32 off), under ``torch.backends.cudnn.benchmark`` (cuDNN
+    picks its algorithm by timing at first use): one JSON line of ms per
+    class. A yardstick only, in a process of its own (``python3
+    chip_smoke.py --grouped-library-benchmark``): the switch holds for the
+    whole process, and the port never sets it."""
+    import torch
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for i, (C, st, H, W, _) in enumerate(GROUPED_CLASSES):
+        x, dy, w = grouped_inputs(torch, C, st, H, W, seed=4000 + i)
+        out[f"{C}_{st}"] = cuda_ms(
+            torch, lambda: grouped_library(torch, x, dy, w, st))
+    emit({"phase": "grouped_library_benchmark", "ms": out,
+          "nvidia_smi": nvidia_smi_line()})
+    return 0
+
+
+def check_grouped(torch, gc, C, stride, H, W, seed, library_bench):
+    """One class of the grouped grad-weight in f32 (TF32 off): the kernel
+    (twice: bitwise equal) and the library's kernel at its default pick
+    against the f64 result of the plain version on the card on the same
+    inputs (max |d| / max |f64|); the kernel's layout copies (none: the
+    inputs are channels_last); the times: the kernel's device time alone
+    (``queued_ms``), the plain version's, the library's at its default
+    pick and (``library_bench``, a process of its own) under
+    ``cudnn.benchmark``."""
+    x, dy, w = grouped_inputs(torch, C, stride, H, W, seed)
+    ref = gc.grouped_conv_grad_weight_reference(
+        x.double(), dy.double(), stride, GROUPED_GROUPS)
+    scale = ref.abs().max().item()
+
+    def kernel():
+        return gc.grouped_conv_grad_weight(x, dy, w, stride, GROUPED_GROUPS)
+
+    def library():
+        return grouped_library(torch, x, dy, w, stride)
+
+    def plain():
+        return gc.grouped_conv_grad_weight_reference(x, dy, stride,
+                                                     GROUPED_GROUPS)
+
+    gc.reset_counts()
+    a, b = kernel(), kernel()
+    copies = gc.route_counts["layout_copies"]
+    lib = library()
+    torch.cuda.synchronize()
+    err = (a.double() - ref).abs().max().item() / scale
+    lib_err = (lib.double() - ref).abs().max().item() / scale
+    plan = gc._plan(BATCH, H, W, C, GROUPED_GROUPS, stride)
+    gflop, bound_ms, bound_by, fma_ms = grouped_bound(C, stride, H, W)
+    r = {"channels": C, "stride": stride, "x": list(x.shape),
+         "dy": list(dy.shape), "gflop": gflop, "splits": plan.splits,
+         "workspace_bytes": 4 * plan.workspace, "max_rel_err": err,
+         "library_max_rel_err": lib_err,
+         "err_over_library": err / max(lib_err, 1e-30),
+         "bitwise_equal": torch.equal(a, b), "layout_copies": copies,
+         "bound_ms": bound_ms, "bound_by": bound_by, "bound_ms_fma": fma_ms}
+    del a, b, lib, ref
+    r["ms"], r["queue_hid_host"] = queued_ms(torch, kernel)
+    r["plain_ms"] = cuda_ms(torch, plain)
+    r["library_ms"] = cuda_ms(torch, library)
+    r["library_benchmark_ms"] = library_bench[f"{C}_{stride}"]
+    r["bound_share"] = bound_ms / r["ms"]
+    r["tflops"] = gflop / r["ms"]
+    r["faster_than_library"] = r["ms"] < min(r["library_ms"],
+                                             r["library_benchmark_ms"])
+    r["within_error"] = err <= TOL_GROUPED_VS_LIBRARY * lib_err
+    r["pass"] = (r["within_error"] and r["bitwise_equal"] and copies == 0
+                 and r["faster_than_library"])
+    return r
+
+
+def grouped_path(torch, smi, by_path):
+    """Phase 16: the grouped 3x3 conv's grad-weight kernel
+    (``ops/grouped_conv.py``, ``csrc/grouped_wgrad.cu``) at each of
+    midas2's classes (``check_grouped``), with the library's pick under
+    ``cudnn.benchmark`` from a process of its own. Returns the kernel's
+    entry of the ``kernels`` line, its launches ``by_path`` (phase 12's
+    midas2 runs)."""
+    from consistent_depth_tpu_torch.ops import grouped_conv as gc
+
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__),
+         "--grouped-library-benchmark"],
+        capture_output=True, text=True, cwd=REPO)
+    require(proc.returncode == 0,
+            f"the cudnn.benchmark process failed:\n{proc.stderr[-4000:]}")
+    library_bench = json.loads(proc.stdout.strip().splitlines()[-1])["ms"]
+    rows = []
+    for i, (C, st, H, W, count) in enumerate(GROUPED_CLASSES):
+        row = check_grouped(torch, gc, C, st, H, W, 4000 + i, library_bench)
+        row["per_step"] = count
+        rows.append(row)
+        emit({"phase": "grouped_wgrad", **row, "nvidia_smi": smi})
+        torch.cuda.empty_cache()
+    totals = {key: sum(r["per_step"] * r[key] for r in rows) for key in (
+        "ms", "plain_ms", "library_ms", "library_benchmark_ms", "bound_ms",
+        "bound_ms_fma")}
+    failed = [[r["channels"], r["stride"]] for r in rows if not r["pass"]]
+    emit({"phase": "grouped_wgrads", "classes": len(rows),
+          "per_step_ms": totals, "launches_by_path": by_path,
+          "failed": failed, "nvidia_smi": smi, "pass": not failed})
+    require(not failed,
+            f"the grouped grad-weight kernel failed classes {failed}: "
+            "against f64, bitwise, a layout copy or slower than the library")
+    return {"name": "grouped_wgrad", "route": "cuda",
+            "source": "consistent_depth_tpu_torch/csrc/grouped_wgrad.cu",
+            "replaces": None, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_rel_err": max(r["max_rel_err"] for r in rows),
+            "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+            "bound_ms": totals["bound_ms"],
+            "library_ms": totals["library_ms"],
+            "library_benchmark_ms": totals["library_benchmark_ms"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -3673,6 +3894,14 @@ def main() -> int:
     aux_routes = aux_path(torch, smi, s2d_conv, context["init_sd"], classes,
                           per_forward)
 
+    # -- 16. the grouped 3x3 conv's grad-weight kernel --------------------
+    # (its launches: phase 12's midas2 f32 timed steps and CLI run)
+    torch.cuda.empty_cache()
+    midas2_runs = backbones["midas2"][0]
+    grouped_entry = grouped_path(torch, smi, {
+        "train": midas2_runs["f32"]["grouped_wgrad"],
+        "cli": midas2_runs["f32_cli"]["grouped_wgrad"]})
+
     # the launches by route of each path that runs the kernel. mc's conv
     # entries: one train epoch of phase 9 (179 steps), by precision, the
     # CLI's run of phase 11 (f32), phase 14's mesh ranks' train steps
@@ -3752,6 +3981,7 @@ def main() -> int:
              "ms": row["ms"], "plain_ms": row["plain_ms"],
              "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
              "library_ms": None})
+    entries.append(grouped_entry)
     print(smi, flush=True)
     emit({"kernels": [e for e in entries if e is not None]})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -3761,4 +3991,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--grouped-library-benchmark"]:
+        sys.exit(grouped_library_benchmark())
     sys.exit(main())

@@ -6,7 +6,9 @@ family use.
   same-padding, odd k >= 3 convs run through the hand-written CUDA kernel
   (:func:`..ops.s2d_conv.same_conv`). Every such conv is routed, whatever its
   resolution: the JAX package's space-to-depth threshold is an MXU trade
-  that has no meaning on Hopper. The 1x1 convs stay on ``F.conv2d``. Convs
+  that has no meaning on Hopper. Its grouped 3x3 convs (ResNeXt's) go
+  through :func:`..ops.grouped_conv.grouped_conv`, whose grad-weight is a
+  hand-written CUDA kernel. The 1x1 convs stay on ``F.conv2d``. Convs
   compute in the dtype of their input, so f32 parameters serve a bf16
   forward (the JAX package's compute dtype, ``layers.py::conv_compute``).
 - Batch norm, 2x average pooling and the 2x bilinear upsample
@@ -37,7 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import s2d_conv
+from ..ops import grouped_conv, s2d_conv
 from ..parallel.mesh import Mesh, all_reduce_sum
 
 # flax's truncated_normal divides by the std of a unit normal truncated
@@ -48,8 +50,10 @@ _TRUNC_STD = 0.87962566103423978
 class SameConv2d(nn.Conv2d):
     """``nn.Conv2d`` (same parameters and state_dict) whose stride-1,
     dilation-1, odd k >= 3 convs with same zero padding run through
-    :func:`same_conv`. Activations are NCHW tensors, channels_last in
-    memory, so the NHWC view the kernel takes is free."""
+    :func:`same_conv` (``routed``), and whose grouped 3x3 convs that
+    :func:`grouped_conv.takes` through :func:`grouped_conv.grouped_conv`
+    (``grouped``). Activations are NCHW tensors, channels_last in memory,
+    so the NHWC views the kernels take are free."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -59,6 +63,10 @@ class SameConv2d(nn.Conv2d):
             and self.stride == (1, 1) and self.dilation == (1, 1)
             and self.padding == ((k - 1) // 2,) * 2 and self.groups == 1
             and self.padding_mode == "zeros")
+        self.grouped = grouped_conv.takes(
+            self.in_channels, self.out_channels, self.kernel_size,
+            self.stride, self.padding, self.dilation, self.groups,
+            self.padding_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the conv computes in the activations' dtype: f32 parameters meet
@@ -66,6 +74,9 @@ class SameConv2d(nn.Conv2d):
         # dtype casts its kernels (no copy when the dtypes agree)
         w = self.weight.to(x.dtype)
         b = self.bias.to(x.dtype) if self.bias is not None else None
+        if self.grouped:
+            return grouped_conv.grouped_conv(x, w, b, self.stride[0],
+                                             self.groups)
         if not self.routed:
             return self._conv_forward(x, w, b)
         y = s2d_conv.same_conv(x.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0), b)

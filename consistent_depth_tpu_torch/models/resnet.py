@@ -8,10 +8,12 @@ Module names are torchvision's, so a released state_dict loads as it is:
 
 Every conv is a :class:`SameConv2d`: the stride-1 3x3 convs of the
 ResNet-18 blocks go through the hand-written k x k conv kernel, as the JAX
-package sends them through ``conv_compute``; the stride-2 convs, the 1x1
-convs, the 7x7 stem and the ResNeXt's grouped 3x3 (a flax ``nn.Conv`` in
-the JAX package) stay on cuDNN. Used by the monodepth2 encoder (ResNet-18)
-and the MiDaS v2 encoder (ResNeXt-101 32x8d).
+package sends them through ``conv_compute``; the ResNeXt's grouped 3x3 (a
+flax ``nn.Conv`` in the JAX package) keeps cuDNN's forward and grad-input
+but takes its grad-weight from a hand-written kernel
+(``ops/grouped_conv.py``); the stride-2 convs, the 1x1 convs and the 7x7
+stem stay on cuDNN. Used by the monodepth2 encoder (ResNet-18) and the
+MiDaS v2 encoder (ResNeXt-101 32x8d).
 """
 
 from __future__ import annotations

@@ -54,6 +54,11 @@ SPLIT_WEIGHT_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
 # the (n, h, w) element strides of f1 and of f2, the stream
 CORRELATION_BANDED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                                + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
+# grouped_wgrad's arguments: x, dy, dw, the workspace; N, H, W, C, groups,
+# stride, splits; the (n, h, w) element strides of x and of dy and the (o,
+# i, r, s) strides of dw; the stream
+GROUPED_WGRAD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                          + [ctypes.c_int64] * 10 + [ctypes.c_void_p])
 
 
 def _nvcc() -> str:
@@ -150,6 +155,8 @@ def library() -> ctypes.CDLL:
         lib.correlation_generic_forward.argtypes = (
             [p, p, p] + [i32] * 6 + [i64] * 8 + [p])
         lib.correlation_generic_forward.restype = i32
+        lib.grouped_wgrad.argtypes = GROUPED_WGRAD_ARGTYPES
+        lib.grouped_wgrad.restype = i32
         lib.same_conv_error_string.argtypes = [i32]
         lib.same_conv_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -33,6 +33,7 @@ EVAL_DEPTH_SCATTER = "eval.depth_scatter"
 KXK_FORWARD = "kxk.forward"
 KXK_GRAD_INPUT = "kxk.grad_input"
 KXK_GRAD_WEIGHT = "kxk.grad_weight"
+GROUPED_GRAD_WEIGHT = "grouped.grad_weight"
 
 _on = False
 _OFF = contextlib.nullcontext()

@@ -11,6 +11,11 @@ a deduplicated ``eval_epoch`` of three batches.
   the backward runs there too), and the outputs, parameters, batch-norm
   statistics and optimizer state are bitwise those of the run with tracing
   off.
+- On a shallow MiDaS v2 (one bottleneck per stage) at 32x64, a 2-step
+  ``train_epoch``: ``grouped.grad_weight`` appears, inside
+  ``step.backward``, as often as ``grouped_conv.launch_count()`` counts,
+  once per step for each of its 4 grouped convs, and not at all with
+  tracing off.
 """
 
 import copy
@@ -21,8 +26,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import synthetic
+from consistent_depth_tpu_torch.models import layers, midas_v2
 from consistent_depth_tpu_torch.models.mannequin_challenge import (
     MannequinChallengeModel)
+from consistent_depth_tpu_torch.ops import grouped_conv
 from consistent_depth_tpu_torch.ops.losses import LossWeights
 from consistent_depth_tpu_torch.training import (
     TrainingEngine, create_optimizer)
@@ -201,3 +208,38 @@ def test_tracing_on_nests_and_leaves_outputs(scene_data, tamed_state, case):
     for i in opt_want:
         for k in opt_want[i]:
             assert torch.equal(opt[i][k], opt_want[i][k]), (i, k)
+
+
+class _ShallowMidas(midas_v2.MidasV2Model):
+    def _make_module(self):
+        return midas_v2.MidasNet(blocks=(1, 1, 1, 1))
+
+
+def test_grouped_grad_weight_span_and_count(monkeypatch):
+    scene = synthetic.make_scene(num_frames=4, H=32, W=64)
+    data = synthetic.build_pair_arrays(scene, synthetic.make_pairs(4))
+    model = _ShallowMidas(checkpoint="", device="cpu")
+    grouped = sum(m.grouped for m in model.net.modules()
+                  if isinstance(m, layers.SameConv2d))
+    assert grouped == 4
+    engine = TrainingEngine(
+        model, create_optimizer("Adam", model.learning_rate),
+        LossWeights(lambda_view_baseline=model.lambda_view_baseline))
+    resident = engine.put_data(data)
+
+    grouped_conv.reset_counts()
+    with monkeypatch.context() as m:
+        m.setattr(tracing, "record_function", _raise)
+        engine.train_epoch(resident, IDX, VALID)
+    assert grouped_conv.launch_count() == grouped * len(IDX)
+
+    grouped_conv.reset_counts()
+    with tracing.enabled(), profile(
+            activities=[ProfilerActivity.CPU]) as prof:
+        engine.train_epoch(resident, IDX, VALID)
+    spans = _spans(prof)
+    n = sum(s[0] == tracing.GROUPED_GRAD_WEIGHT for s in spans)
+    assert n == grouped_conv.launch_count() == grouped * len(IDX)
+    assert grouped_conv.route_counts["kernel"] == 0
+    assert _inside(spans, tracing.GROUPED_GRAD_WEIGHT, tracing.STEP_BACKWARD)
+    assert sum(s[0] == tracing.KXK_GRAD_WEIGHT for s in spans) > 0
