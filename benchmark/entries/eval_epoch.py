@@ -33,7 +33,7 @@ class State:
     stream: traffic.StepStream
     steps_per_call: int
     flop_per_pair: float
-    kxk_batch_s: float
+    batch_bounds_s: Dict[str, float]
     kept: List = field(default_factory=list)
     bad: List = field(default_factory=list)
 
@@ -52,7 +52,8 @@ def call(st: State) -> Work:
     idx, valid, losses, depth0 = _call(st)
     st.kept.append((idx[0].copy(), valid[0].copy(), losses[0], depth0))
     units = int(valid.sum())
-    return Work(units, st.flop_per_pair * units, 0, st.kxk_batch_s * len(idx))
+    return Work(units, st.flop_per_pair * units, 0,
+                {k: v * len(idx) for k, v in st.batch_bounds_s.items()})
 
 
 def setup(run) -> State:
@@ -79,8 +80,8 @@ def setup(run) -> State:
             lambda e: traffic.eval_batches(n_pairs, B)),
         steps_per_call=int(tr["steps_per_call"]),
         flop_per_pair=2 * roofline.forward_flop(run.reference, H, W),
-        kxk_batch_s=roofline.kxk_bound_s(run.reference, 2 * B, H, W,
-                                         run.precision, grad_input=False))
+        batch_bounds_s=roofline.bounds_s(run.reference, 2 * B, H, W,
+                                         run.precision, backward=False))
     _call(st)                      # warm-up: the window's shapes
     st.bad = []
     return st

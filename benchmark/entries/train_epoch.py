@@ -35,7 +35,7 @@ class State:
     stream: traffic.StepStream
     steps_per_call: int
     flop_per_pair: float
-    kxk_step_s: float
+    step_bounds_s: Dict[str, float]
     first_idx: Any = None
     first_valid: Any = None
     readings: Dict = field(default_factory=dict)
@@ -48,7 +48,7 @@ def _call(st: State, steps: int):
     st.skipped.append((m["skipped_nan"], valid.sum(1)))
     units = int(valid.sum())
     return Work(units, st.flop_per_pair * units, len(idx),
-                st.kxk_step_s * len(idx)), m
+                {k: v * len(idx) for k, v in st.step_bounds_s.items()}), m
 
 
 def call(st: State) -> Work:
@@ -80,8 +80,8 @@ def setup(run) -> State:
         steps_per_call=int(tr["steps_per_call"]),
         # forward, and twice the forward for the backward, of both frames
         flop_per_pair=3 * 2 * roofline.forward_flop(run.reference, H, W),
-        kxk_step_s=roofline.kxk_bound_s(run.reference, 2 * B, H, W,
-                                        run.precision, grad_input=True))
+        step_bounds_s=roofline.bounds_s(run.reference, 2 * B, H, W,
+                                        run.precision, backward=True))
 
     n = int(tr["check_steps"])
     st.first_idx = st.stream.idx[:n].copy()

@@ -32,10 +32,29 @@ def device_idle(record: dict, kind: str) -> Optional[float]:
 
 
 def kxk_roofline(record: dict, kind: str) -> Optional[float]:
-    """The least time of the profiled span's k x k conv work over the
-    device time of the kernels in the program's conv ranges, in %."""
+    """The least time of the attributed call's k x k conv work over the
+    device time of the program's ``kxk.forward`` and ``kxk.grad_input``
+    spans, in %."""
     tr = record["trace"]
-    if (record["kind"] != kind or tr is None
-            or tr["span_kxk_device_s"] <= 0 or tr["span_kxk_bound_s"] <= 0):
+    if record["kind"] != kind or tr is None:
         return None
-    return 100.0 * tr["span_kxk_bound_s"] / tr["span_kxk_device_s"]
+    spans = [tr["spans"].get(s) for s in ("kxk.forward", "kxk.grad_input")]
+    device_s = sum(s["device_s"] for s in spans if s is not None)
+    bound_s = tr["bounds_s"].get("kxk", 0.0)
+    if device_s <= 0 or bound_s <= 0:
+        return None
+    return 100.0 * bound_s / device_s
+
+
+def span_ms(record: dict, kind: str, span: str, per: str) -> Optional[float]:
+    """ms of device time in the program's span ``span`` of the attributed
+    call, per entry into the span ``per`` ("engine.step" for a train step,
+    "eval.batch" for an eval batch); None where either span is absent,
+    ``per`` was never entered or ``span`` holds no device time."""
+    tr = record["trace"]
+    if record["kind"] != kind or tr is None:
+        return None
+    s, p = tr["spans"].get(span), tr["spans"].get(per)
+    if s is None or p is None or p["count"] <= 0 or s["device_s"] <= 0:
+        return None
+    return 1e3 * s["device_s"] / p["count"]

@@ -19,11 +19,12 @@ An entry module (``benchmark/entries/<entry>.py``) provides:
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import math
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,18 +39,19 @@ WINDOW = "bench.window"
 class Work:
     """What one call did: units of the cell's rate (pairs or frames),
     model FLOP of those units, train steps, and the least seconds of its
-    k x k conv work."""
+    work by class (``roofline.bounds_s``: "kxk", "linear", "attention")."""
 
     units: int = 0
     flop: float = 0.0
     steps: int = 0
-    kxk_s: float = 0.0
+    bounds_s: Dict[str, float] = field(default_factory=dict)
 
     def add(self, other: "Work") -> None:
         self.units += other.units
         self.flop += other.flop
         self.steps += other.steps
-        self.kxk_s += other.kxk_s
+        for k, v in other.bounds_s.items():
+            self.bounds_s[k] = self.bounds_s.get(k, 0.0) + v
 
 
 @dataclass
@@ -148,9 +150,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         "trace": None,
     }
     if summary is not None:
-        conv_s = sum(summary["ranges_s"].values())
-        record["trace"] = dict(summary, span_kxk_bound_s=span.kxk_s,
-                               span_kxk_device_s=conv_s)
+        record["trace"] = dict(summary, bounds_s=span.bounds_s)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = m.reader.read(record)
@@ -178,10 +178,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
 def _profiled_spans(run: Run, entry, state, calls: int):
     """``calls`` more calls profiled with device activity alone, then one
-    with the host's ops too and the k x k convs in named ranges. Returns
-    (the trace summary or None, the second span's Work)."""
+    with the host's ops too and the program's spans on. Returns (the trace
+    summary or None, the second span's Work)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    try:
+        from consistent_depth_tpu_torch.utils.tracing import enabled
+    except ImportError:       # a program without spans: none to read
+        enabled = contextlib.nullcontext
     device = ([ProfilerActivity.CUDA] if run.device.type == "cuda"
               else [ProfilerActivity.CPU])
     run.sync()
@@ -191,14 +195,13 @@ def _profiled_spans(run: Run, entry, state, calls: int):
         run.sync()
     steady = trace_mod.steady(prof)
     span = Work()
-    with trace_mod.conv_ranges(), profile(
-            activities=sorted({ProfilerActivity.CPU, *device},
-                              key=lambda a: a.value)) as prof:
+    with profile(activities=sorted({ProfilerActivity.CPU, *device},
+                                   key=lambda a: a.value)) as prof:
         with record_function(WINDOW):
-            span.add(entry.call(state))
+            with enabled():
+                span.add(entry.call(state))
             run.sync()
-    attributed = trace_mod.attribution(
-        prof, WINDOW, (trace_mod.FORWARD_RANGE, trace_mod.GRAD_INPUT_RANGE))
+    attributed = trace_mod.attribution(prof, WINDOW)
     if steady is None or attributed is None:
         return None, span
     return dict(steady, **attributed), span

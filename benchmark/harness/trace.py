@@ -4,55 +4,24 @@ Recording every host op slows the host by tens of microseconds an op, and
 a step that the host issues near the device's pace then idles the device
 for the profiler's sake. So :func:`steady` reads a span profiled with
 device activity alone (busy time, idle share, the device ops), and
-:func:`attribution` a second span with the host's ops too: the device time
-of the kernels inside each named range, placed by the device-side spans the
-profiler draws for the range, so that a kernel is attributed whatever
-launched it (the conv kernels go out through ctypes, not through a torch
-op), and the idle gaps named by the innermost host op running when each
-began. Both are ``chip_smoke.py::trace_summary`` split in two.
-
-:func:`conv_ranges` names the program's k x k conv entry points for the
-span only; a program without them leaves the ranges empty.
+:func:`attribution` a second span with the host's ops and the program's
+own spans on (``consistent_depth_tpu_torch.utils.tracing``): for each span
+name, its host count and the device time of the kernels inside its
+device-side ranges, which the profiler draws from the first to the last
+kernel launched while the span is innermost on its thread, so that a
+kernel is attributed whatever launched it (the conv kernels go out through
+ctypes, not through a torch op); and the idle gaps named by the innermost
+host op running when each began. Both are ``chip_smoke.py::trace_summary``
+split in two.
 """
 
 from __future__ import annotations
 
-import contextlib
 from bisect import bisect_left, bisect_right
-from collections import Counter
-from typing import Dict, Iterable, Optional
+from collections import Counter, defaultdict
+from typing import Dict, List, Optional, Sequence, Tuple
 
-FORWARD_RANGE = "bench.kxk_forward"
-GRAD_INPUT_RANGE = "bench.kxk_grad_input"
-
-
-@contextlib.contextmanager
-def conv_ranges():
-    """Inside the block the port's k x k conv forward and grad-input run
-    in ranges named FORWARD_RANGE and GRAD_INPUT_RANGE."""
-    from torch.profiler import record_function
-
-    from consistent_depth_tpu_torch.ops import s2d_conv
-
-    names = (("_forward", FORWARD_RANGE),
-             ("same_conv_grad_input", GRAD_INPUT_RANGE))
-    saved = {a: getattr(s2d_conv, a) for a, _ in names
-             if hasattr(s2d_conv, a)}
-
-    def named(label, fn):
-        def wrapper(*args, **kwargs):
-            with record_function(label):
-                return fn(*args, **kwargs)
-        return wrapper
-
-    try:
-        for attr, label in names:
-            if attr in saved:
-                setattr(s2d_conv, attr, named(label, saved[attr]))
-        yield
-    finally:
-        for attr, fn in saved.items():
-            setattr(s2d_conv, attr, fn)
+Interval = Tuple[float, float]
 
 
 def _union(intervals, lo, hi):
@@ -76,6 +45,31 @@ def _union(intervals, lo, hi):
     if hi > cur_e:
         gaps.append((cur_e, hi))
     return busy, gaps
+
+
+def _merge(intervals: Sequence[Interval]) -> List[Interval]:
+    """The union of intervals, as sorted disjoint intervals."""
+    out: List[Interval] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def covered(busy: Sequence[Interval], ranges: Sequence[Interval]) -> float:
+    """The length of ``busy`` (sorted disjoint intervals: the union of the
+    kernels) inside the union of ``ranges``: a span's device time, each
+    moment counted once however many of its ranges or kernels overlap."""
+    starts = [s for s, _ in busy]
+    total = 0.0
+    for lo, hi in _merge(ranges):
+        i = max(bisect_left(starts, lo) - 1, 0)
+        while i < len(busy) and busy[i][0] < hi:
+            total += max(0.0, min(busy[i][1], hi) - max(busy[i][0], lo))
+            i += 1
+    return total
 
 
 def _kernels(events, exclude=()):
@@ -109,35 +103,36 @@ def steady(prof) -> Optional[Dict]:
             "device_ops": [[n, t * us] for n, t in by_name.most_common(10)]}
 
 
-def attribution(prof, window: str, ranges: Iterable[str]) -> Optional[Dict]:
-    """From a span named ``window`` profiled with host and device activity:
-    the device seconds of the kernels inside each named range of
-    ``ranges``, and the idle seconds by the host op running at each gap's
-    start. None when the trace holds no device activity in the span."""
+def attribution(prof, window: str) -> Optional[Dict]:
+    """From a span named ``window`` profiled with host and device activity
+    and the program's spans on: ``spans``, {span name: {"device_s": the
+    device seconds of the kernels in the union of its device-side ranges,
+    "count": how often the host entered it}} for every named range but
+    ``window``, and ``idle_gaps``, the idle seconds by the host op running
+    at each gap's start. None when the trace holds no device activity in
+    the span."""
     from torch.autograd import DeviceType
 
     events = prof.events()
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
     win = [e for e in cpu if e.name == window]
     labels = {e.name for e in cpu if getattr(e, "is_user_annotation", False)}
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
     device = _kernels(events, labels | {window})
     kernels = sorted((e.time_range.start, e.time_range.end) for e in device)
     if not win or not kernels:
         return None
     lo, hi = win[0].time_range.start, win[0].time_range.end
     _, gaps = _union(kernels, lo, hi)
-    starts = [s for s, _ in kernels]
-    in_ranges = dict.fromkeys(ranges, 0.0)
-    for e in on_device:
-        if e.name not in in_ranges:
-            continue
-        lo_r, hi_r = e.time_range.start, e.time_range.end
-        i = max(bisect_left(starts, lo_r) - 1, 0)
-        while i < len(kernels) and kernels[i][0] < hi_r:
-            in_ranges[e.name] += max(
-                0.0, min(kernels[i][1], hi_r) - max(kernels[i][0], lo_r))
-            i += 1
+    busy = _merge(kernels)
+    ranges = defaultdict(list)
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name in labels:
+            ranges[e.name].append((e.time_range.start, e.time_range.end))
+    counts = Counter(e.name for e in cpu if e.name in labels)
+    us = 1e-6
+    spans = {name: {"device_s": covered(busy, ranges[name]) * us,
+                    "count": counts[name]}
+             for name in sorted(labels - {window})}
     # the idle gaps by the innermost host op covering each gap's start:
     # of the ops that began before it, the latest that is still running
     host = sorted(((e.time_range.start, e.time_range.end, e.name)
@@ -152,6 +147,5 @@ def attribution(prof, window: str, ranges: Iterable[str]) -> Optional[Dict]:
                 name = n
                 break
         idle[name] += g1 - g0
-    us = 1e-6
-    return {"ranges_s": {k: v * us for k, v in in_ranges.items()},
+    return {"spans": spans,
             "idle_gaps": [[n, t * us] for n, t in idle.most_common(10)]}

@@ -1,6 +1,7 @@
-"""Plain PyTorch pieces shared by the configurations' references: the conv
-with an optional lower-precision rounding of its operands (the control),
-the geometric consistency loss chain and Adam with the NaN-skip.
+"""Plain PyTorch pieces shared by the configurations' references: the conv,
+the linear, the matmul and the attention with an optional lower-precision
+rounding of their operands (the control), the geometric consistency loss
+chain and Adam with the NaN-skip.
 
 A frozen copy of the port's plain arithmetic (``ops/geometry.py``,
 ``ops/resample.py``, ``ops/losses.py`` without a mesh, and the engine's
@@ -84,11 +85,52 @@ class Conv2d(nn.Conv2d):
                       self.groups, self.rounding)
 
 
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           rounding: Optional[str] = None) -> torch.Tensor:
+    """``F.linear``; with ``rounding``, as :func:`conv2d`."""
+    if rounding is None:
+        return F.linear(x, w, b)
+    fn = ROUNDINGS[rounding]
+    y = F.linear(_Round.apply(x, fn), _Round.apply(w, fn), b)
+    return _RoundGrad.apply(y, fn)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           rounding: Optional[str] = None) -> torch.Tensor:
+    """``torch.matmul``; with ``rounding``, as :func:`conv2d`."""
+    if rounding is None:
+        return torch.matmul(a, b)
+    fn = ROUNDINGS[rounding]
+    y = torch.matmul(_Round.apply(a, fn), _Round.apply(b, fn))
+    return _RoundGrad.apply(y, fn)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              rounding: Optional[str] = None) -> torch.Tensor:
+    """``F.scaled_dot_product_attention`` of q (..., Lq, d), k and v (...,
+    Lk, d), no mask; with ``rounding``, Q K^T and P V as :func:`matmul`
+    (the scores and the softmax in f32)."""
+    if rounding is None:
+        return F.scaled_dot_product_attention(q, k, v)
+    s = matmul(q, k.transpose(-2, -1), rounding) * q.shape[-1] ** -0.5
+    return matmul(torch.softmax(s, dim=-1), v, rounding)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose products follow ``self.rounding`` (None: f32)."""
+
+    rounding: Optional[str] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias, self.rounding)
+
+
 def set_rounding(net: nn.Module, rounding: Optional[str]) -> nn.Module:
-    """Every :class:`Conv2d` of ``net`` (and ``net`` itself, for convs it
-    calls directly) computes with ``rounding``; returns ``net``."""
+    """Every :class:`Conv2d` and :class:`Linear` of ``net`` (and every
+    module with a ``rounding`` of its own, for the products it calls
+    directly) computes with ``rounding``; returns ``net``."""
     for m in net.modules():
-        if isinstance(m, Conv2d) or hasattr(m, "rounding"):
+        if hasattr(m, "rounding"):
             m.rounding = rounding
     return net
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -84,10 +85,13 @@ def main(argv=None) -> int:
         f"{name} {s:.3f}" for name, s in out.record["setup_phases"]),
         file=sys.stderr)
     calls = out.record["calls"]
-    print(f"window: {len(calls)} calls, host s per call "
-          f"{min(t for _, t in calls):.4f}-{max(t for _, t in calls):.4f}, "
-          f"units per call {min(u for u, _ in calls)}-"
-          f"{max(u for u, _ in calls)}", file=sys.stderr)
+    host = [t for _, t in calls]
+    first = host[:max(len(host) // 4, 1)]
+    print(f"window: {len(calls)} calls, host s per call {min(host):.4f}-"
+          f"{max(host):.4f}, median {statistics.median(host):.4f}, first "
+          f"quarter's mean {statistics.mean(first):.4f}, units per call "
+          f"{min(u for u, _ in calls)}-{max(u for u, _ in calls)}",
+          file=sys.stderr)
     for name, c in out.result["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}",
               file=sys.stderr)

@@ -53,6 +53,39 @@ def test_rounding_moves_the_reference():
     assert 1e-4 < d_tf32 < 1
 
 
+def test_rounding_moves_a_linear():
+    lin = common.Linear(64, 32)
+    x = torch.randn((8, 64), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        f32 = common.set_rounding(lin, None)(x)
+        assert torch.equal(f32, torch.nn.functional.linear(x, lin.weight,
+                                                           lin.bias))
+        tf32 = common.set_rounding(lin, "tf32")(x)
+    gap = float((tf32 - f32).abs().max() / f32.abs().max())
+    assert 1e-6 < gap < 1e-2
+    # the backward's products take rounded operands too
+    x.requires_grad_(True)
+    common.set_rounding(lin, "tf32")(x).sum().backward()
+    g_tf32 = x.grad.clone()
+    x.grad = None
+    common.set_rounding(lin, None)(x).sum().backward()
+    assert not torch.equal(g_tf32, x.grad)
+
+
+def test_rounding_moves_matmul_and_attention():
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn((2, 4, 16, 8), generator=g) for _ in range(3))
+    assert torch.equal(common.matmul(q, k.transpose(-2, -1)),
+                       q @ k.transpose(-2, -1))
+    assert not torch.equal(common.matmul(q, k.transpose(-2, -1), "tf32"),
+                           q @ k.transpose(-2, -1))
+    f32 = common.attention(q, k, v)
+    assert torch.equal(f32, torch.nn.functional.scaled_dot_product_attention(
+        q, k, v))
+    tf32 = common.attention(q, k, v, "tf32")
+    assert 1e-6 < float((tf32 - f32).abs().max()) < 1e-2
+
+
 CELLS = ["mc-finetune-f32", "midas2-finetune-f32", "mc-eval-f32"]
 
 

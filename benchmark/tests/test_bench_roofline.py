@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 import torch.nn as nn
 
 from benchmark.harness import roofline, spec, traffic
@@ -79,6 +80,98 @@ def test_mc_forward_flop():
     mc = spec.reference_module("mc")
     # 2 x (multiply-adds) of every conv of the hourglass at 224x384
     assert roofline.forward_flop(mc, 224, 384) == 105664806912
+    assert len(roofline.convs_of(mc, 1, 224, 384)) == 156
+
+
+def test_midas2_forward_flop():
+    midas = spec.reference_module("midas2")
+    assert roofline.forward_flop(midas, 224, 384) == 120683888640
+    assert len(roofline.convs_of(midas, 1, 224, 384)) == 125
+    # nothing but convs: no linear or attention work
+    b = roofline.bounds_s(midas, 8, 224, 384, "f32", backward=True)
+    assert b == {"kxk": roofline.kxk_bound_s(midas, 8, 224, 384, "f32",
+                                             True),
+                 "linear": 0.0, "attention": 0.0}
+
+
+def test_linear_and_attention_bounds_by_hand():
+    # ViT-L's MLP up-projection over 2 x 1009 tokens in f32: operations
+    flop, t, by = roofline.linear_bound(1, 2018, 1024, 4096, "f32", bias=True)
+    assert flop == 2 * 2018 * 1024 * 4096
+    assert t == pytest.approx(flop / 165e12) and by == "operations"
+    # a batched product of activations reads both per batch: bytes in bf16
+    flop, t, by = roofline.linear_bound(32, 16, 64, 16, "bf16",
+                                        b_elems=32 * 64 * 16)
+    assert t == pytest.approx(32 * (16 * 64 + 64 * 16 + 16 * 16) * 2
+                              / 3.35e12) and by == "bytes"
+    # attention over 16 heads of 64, 1009 tokens: forward and backward
+    flop, t, _ = roofline.attention_bound("forward", 32, 1009, 1009, 64, "f32")
+    assert flop == 4 * 32 * 1009 * 1009 * 64
+    assert t == pytest.approx(max(flop / 165e12,
+                                  4 * 32 * 64 * 4 * 1009 / 3.35e12))
+    flop_b, t_b, _ = roofline.attention_bound("backward", 32, 1009, 1009, 64,
+                                              "f32")
+    assert flop_b == 2 * flop and t_b == pytest.approx(2 * t)
+
+
+class _MHA:
+    """A reference module of one nn.MultiheadAttention of width 32, 4
+    heads, over a frame's values read as tokens of 32."""
+
+    @staticmethod
+    def build():
+        return nn.MultiheadAttention(32, 4, batch_first=True)
+
+    @staticmethod
+    def depth(net, images):
+        x = images.reshape(images.shape[0] * images.shape[1], -1, 32)
+        return net(x, x, x, need_weights=False)[0]
+
+
+def test_multi_head_attention_refused():
+    # a composite's products go unseen inside its handler: refused, with
+    # the calls a reference writes instead
+    with pytest.raises(ValueError, match="multi_head_attention_forward.*"
+                                         "scaled_dot_product_attention"):
+        roofline.forward_flop(_MHA, 4, 8)
+
+
+class _Broadcast:
+    """A (4, 3) matrix on the left of a frame's values read as a batch of
+    (3, 8) matrices: the left operand is broadcast over the batch."""
+
+    @staticmethod
+    def build():
+        return nn.Linear(3, 4)
+
+    @staticmethod
+    def depth(net, images):
+        return net.weight @ images.reshape(-1, 3, 8)
+
+
+def test_broadcast_matmul_reads_each_operand_once():
+    # 2 frames of 4 x 8 x 3: a batch of 8 (3, 8) matrices under one (4, 3)
+    (p,) = roofline._trace(_Broadcast, 2, 4, 8).linears
+    assert (p.batch, p.M, p.K, p.N, p.a_elems, p.b_elems) == (
+        8, 4, 3, 8, 12, 8 * 3 * 8)
+    t = roofline.bounds_s(_Broadcast, 2, 4, 8, "f32", False)["linear"]
+    assert t == pytest.approx((12 + 8 * 3 * 8 + 8 * 4 * 8) * 4 / 3.35e12,
+                              rel=1e-12)
+
+
+class _Uncounted:
+    @staticmethod
+    def build():
+        return nn.Linear(3, 3)
+
+    @staticmethod
+    def depth(net, images):
+        return torch.einsum("...c,dc->...d", images, net.weight)
+
+
+def test_uncounted_product_is_refused():
+    with pytest.raises(ValueError, match="einsum"):
+        roofline.forward_flop(_Uncounted, 4, 4)
 
 
 def test_demo_pairs_and_batches():
