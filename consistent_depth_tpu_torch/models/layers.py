@@ -23,8 +23,10 @@ family use.
   :func:`upsample_nearest_2x`. The JAX package's ``max_pool`` is
   ``nn.MaxPool2d`` (its padding enters as -inf, as torch's does).
 - :func:`init_parameters`: flax's ``lecun_normal`` initialisation (a
-  normal truncated at two standard deviations, scaled by the fan-in) from an
-  explicit generator.
+  normal truncated at two standard deviations, scaled by the fan-in) of the
+  convs, and a ViT's (DINOv2's: linears N(0, 0.02^2) truncated at two
+  standard deviations, LayerNorms 1 and 0, the rest by its module's
+  ``reset_free_parameters``), from an explicit generator.
 - :class:`GlobalBatchNorm2d` and :func:`convert_global_batch_norm`: batch
   norm whose train-mode statistics are those of the global batch of a data
   mesh (``..parallel.mesh``), as the JAX package's one program over the
@@ -103,28 +105,40 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
-def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """flax ``lecun_normal`` for a conv weight (O, I, kh, kw). Applied to a
-    transposed-conv weight (I, O, kh, kw) it scales by kh * kw * O, the
-    fan-in flax's ``ConvTranspose(transpose_kernel=True)`` uses."""
-    fan_in = w.shape[1] * w.shape[2] * w.shape[3]
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    # inverse-CDF sampling of the normal truncated to [-2, 2] std: one
-    # uniform draw per element, the same values on every torch version
-    # (nn.init.trunc_normal_ rejection-samples, ~10x slower on FlowNet2's
-    # 162 M parameters)
+def trunc_normal_(w: torch.Tensor, std: float,
+                  generator: torch.Generator) -> None:
+    """N(0, std^2) truncated to [-2 std, 2 std], in place."""
+    # inverse-CDF sampling: one uniform draw per element, the same values on
+    # every torch version (nn.init.trunc_normal_ rejection-samples, ~10x
+    # slower on FlowNet2's 162 M parameters)
     edge = math.erf(2.0 / math.sqrt(2.0))
     with torch.no_grad():
         w.uniform_(-edge, edge, generator=generator)
         w.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
 
 
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax ``lecun_normal`` for a conv weight (O, I, kh, kw). Applied to a
+    transposed-conv weight (I, O, kh, kw) it scales by kh * kw * O, the
+    fan-in flax's ``ConvTranspose(transpose_kernel=True)`` uses."""
+    fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+    trunc_normal_(w, math.sqrt(1.0 / fan_in) / _TRUNC_STD, generator)
+
+
+# a linear's weight std in a ViT (DINOv2's ``init_weights_vit_timm``)
+LINEAR_STD = 0.02
+
+
 def init_parameters(net: nn.Module, generator: torch.Generator) -> None:
     """Initialise every parameter and buffer of ``net`` as the JAX package
     does (``ConvParams``/``TorchBatchNorm``, flax ``ConvTranspose``): conv
     and transposed-conv kernels lecun-normal, their biases 0, BN scale 1
-    and bias 0, running mean 0 and variance 1. Modules are visited in
-    registration order, so a seed fixes the result."""
+    and bias 0, running mean 0 and variance 1; and a ViT's layers as DINOv2
+    does: linear weights N(0, LINEAR_STD^2) truncated at two standard
+    deviations, their biases 0, LayerNorm scale 1 and shift 0. A module
+    with parameters outside these layers (a LayerScale, a cls token)
+    fills them in its ``reset_free_parameters(generator)``. Modules are
+    visited in registration order, so a seed fixes the result."""
     for m in net.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             lecun_normal_(m.weight, generator)
@@ -132,6 +146,14 @@ def init_parameters(net: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
+        elif isinstance(m, nn.Linear):
+            trunc_normal_(m.weight, LINEAR_STD, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+        if hasattr(m, "reset_free_parameters"):
+            m.reset_free_parameters(generator)
 
 
 class GlobalBatchNorm2d(nn.BatchNorm2d):

@@ -62,21 +62,25 @@ class ResidualConvUnit(nn.Module):
 
 
 class FeatureFusionBlock(nn.Module):
-    """``x`` (+ resConfUnit1(``skip``)) -> resConfUnit2 -> bilinear 2x
-    upsample with align_corners=True."""
+    """``x`` (+ resConfUnit1(``skip``)) -> resConfUnit2 -> bilinear resize
+    with align_corners=True, to ``size`` or by 2x -> with ``out_conv``, a
+    1x1 conv (Depth Anything V2's blocks; MiDaS v2's have none)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, out_conv: bool = False):
         super().__init__()
         self.resConfUnit1 = ResidualConvUnit(features)
         self.resConfUnit2 = ResidualConvUnit(features)
+        self.out_conv = (SameConv2d(features, features, 1) if out_conv
+                         else None)
 
-    def forward(self, x: torch.Tensor,
-                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                size: Optional[Sequence[int]] = None) -> torch.Tensor:
         if skip is not None:
             x = x + self.resConfUnit1(skip)
         y = self.resConfUnit2(x)
         H, W = y.shape[2:]
-        return resize_bilinear(y, (2 * H, 2 * W), align_corners=True)
+        y = resize_bilinear(y, size or (2 * H, 2 * W), align_corners=True)
+        return y if self.out_conv is None else self.out_conv(y)
 
 
 class _Upsample2x(nn.Module):

@@ -1,6 +1,7 @@
 """Backbone registry: the port of ``consistent_depth_tpu/models/registry.py``
-(reference: monodepth/depth_model_registry.py). Each adapter module is
-imported when its backbone is asked for."""
+(reference: monodepth/depth_model_registry.py), with one backbone the JAX
+package lacks: ``dav2-large``, Depth Anything V2-Large. Each adapter module
+is imported when its backbone is asked for."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from .base import DepthModel
 
 
 def get_depth_model_list() -> List[str]:
-    return ["mc", "midas2", "monodepth2"]
+    return ["mc", "midas2", "monodepth2", "dav2-large"]
 
 
 def get_depth_model(type: str) -> Type[DepthModel]:  # noqa: A002
@@ -23,6 +24,9 @@ def get_depth_model(type: str) -> Type[DepthModel]:  # noqa: A002
     if type == "monodepth2":
         from .monodepth2 import Monodepth2Model
         return Monodepth2Model
+    if type == "dav2-large":
+        from .depth_anything_v2 import DepthAnythingV2Model
+        return DepthAnythingV2Model
     raise ValueError(f"Unsupported model type '{type}'.")
 
 

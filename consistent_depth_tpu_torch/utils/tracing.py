@@ -34,6 +34,10 @@ KXK_FORWARD = "kxk.forward"
 KXK_GRAD_INPUT = "kxk.grad_input"
 KXK_GRAD_WEIGHT = "kxk.grad_weight"
 GROUPED_GRAD_WEIGHT = "grouped.grad_weight"
+LINEAR_FORWARD = "linear.forward"
+LINEAR_BACKWARD = "linear.backward"
+ATTENTION_FORWARD = "attention.forward"
+ATTENTION_BACKWARD = "attention.backward"
 
 _on = False
 _OFF = contextlib.nullcontext()

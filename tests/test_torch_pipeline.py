@@ -82,39 +82,54 @@ def test_command_lines_parse_as_jax(argv):
     assert _flat(got) == _flat(want)
 
 
+# the port's backbone that the JAX package lacks: Depth Anything V2-Large
+PORT_ONLY_MODELS = ["dav2-large"]
+
+
 def test_flag_surface_matches_jax():
     def surface(parser):
         return {a.option_strings[0] if a.option_strings else a.dest:
                 (a.default, a.choices, a.nargs, a.type is None)
                 for a in parser._actions}
 
-    assert surface(Video3dParamsParser().parser) == surface(
-        JaxParamsParser().parser)
+    want = surface(JaxParamsParser().parser)
+    default, choices, nargs, untyped = want["--model_type"]
+    want["--model_type"] = (default, choices + PORT_ONLY_MODELS, nargs,
+                            untyped)
+    assert surface(Video3dParamsParser().parser) == want
 
 
 def test_model_defaults_match_jax(tmp_path, monkeypatch):
     """Fault 1: the defaults the CLI resolves ``--learning_rate 0``,
     ``--lambda_view_baseline -1`` and ``--align 0`` from, for every
-    backbone the flag takes; midas2 and monodepth2 are the real adapters,
+    backbone the flag takes (the JAX package's, and the port's own
+    dav2-large, DA2's encoder rate and midas2's disparity weight at its
+    patch size); midas2, monodepth2 and dav2-large are the real adapters,
     and with their default weights missing they raise, naming the path,
     before any download or build."""
+    from consistent_depth_tpu_torch.models.depth_anything_v2 import (
+        DepthAnythingV2Model)
     from consistent_depth_tpu_torch.models.midas_v2 import MidasV2Model
     from consistent_depth_tpu_torch.models.monodepth2 import Monodepth2Model
 
     assert registry.get_depth_model_list() == \
-        jax_registry.get_depth_model_list()
-    for name in registry.get_depth_model_list():
+        jax_registry.get_depth_model_list() + PORT_ONLY_MODELS
+    for name in jax_registry.get_depth_model_list():
         got, want = registry.get_depth_model(name), \
             jax_registry.get_depth_model(name)
         for attr in ("align", "learning_rate", "lambda_view_baseline"):
             assert getattr(got, attr) == getattr(want, attr), (name, attr)
     assert MannequinChallengeModel.learning_rate == 0.0004
     assert MannequinChallengeModel.lambda_view_baseline == 0.1
+    assert (DepthAnythingV2Model.align, DepthAnythingV2Model.learning_rate,
+            DepthAnythingV2Model.lambda_view_baseline) == (14, 5e-6, 1e-4)
     monkeypatch.setenv("CDTPU_CHECKPOINT_DIR", str(tmp_path))
     for name, cls, default in (
             ("midas2", MidasV2Model, "midas2.pth"),
             ("monodepth2", Monodepth2Model,
-             "monodepth2_mono+stereo_1024x320")):
+             "monodepth2_mono+stereo_1024x320"),
+            ("dav2-large", DepthAnythingV2Model,
+             "depth_anything_v2_vitl.pth")):
         assert registry.get_depth_model(name) is cls
         with pytest.raises(FileNotFoundError) as err:
             registry.create_depth_model(name, device="cpu")
