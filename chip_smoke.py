@@ -39,6 +39,10 @@ its plain PyTorch version:
   step, the paired eval and serving on two ranks that share the card over
   gloo, and the train step on one NCCL rank (the k x k conv kernel, forward
   and grad-input, in every rank).
+- the linears of dav2-large (Depth Anything V2-Large, ViT-L/14) in f32
+  through ``consistent_depth_tpu_torch.ops.transformer`` (kernel:
+  ``csrc/linear_wgmma_tf32.cu``, 3xTF32 on wgmma with TMA, for the forward,
+  the grad-input and the grad-weight).
 
 Phases, each printing one JSON line:
 
@@ -221,6 +225,20 @@ Phases, each printing one JSON line:
    class's bound; the kernel faster than both cuDNN picks. Its launches
    are counted in phase 12's midas2 runs: BACKBONE_GROUPED a f32 step (the
    first step, the timed steps, the CLI's), none in bf16.
+17. linear: the linear's f32 GEMM kernel (``ops/transformer.py``,
+   ``csrc/linear_wgmma_tf32.cu``), TF32 off, in each direction (forward
+   with its bias, grad-input, grad-weight) at each of dav2-large's
+   LINEAR_SHAPES (its block's qkv, proj, fc1 and fc2 and its head's two
+   transposed convs, 8 frames at 518x882): the kernel and the library's
+   f32 SGEMM (cuBLAS, which is also the plain version there: ``torch.mm``)
+   against the f64 product of the same inputs on the card (the kernel
+   within TOL_LINEAR_VS_LIBRARY times the library's error), two calls
+   bitwise equal; the device time alone of the kernel's call (its splits,
+   GEMM and reduce), of its split alone and of the library's SGEMM, beside
+   the bound. Then ``transformer.linear_routes``, zeroed just before, over
+   one full-size dav2-large train step of TrainingEngine on 8 frames at
+   518x882 (4 pairs): LINEAR_GEMMS a step on the kernel and none on the
+   library in f32, none on the kernel in bf16.
 
 Then the card's name and power limit as nvidia-smi prints them, a
 ``{"kernels": [...]}`` line, whose launches add up each path's run
@@ -235,7 +253,8 @@ phase 15's forwards (``aux``), with the times of mc's classes; for each
 backbone's entries (``same_conv_midas2``, ...) its timed steps and CLI run,
 with the times of its own classes; phase 6 and phase 11 for the
 correlation; ``grouped_wgrad``, phase 12's midas2 f32 timed steps and CLI
-run, with phase 16's per-step times of its classes. Last comes
+run, with phase 16's per-step times of its classes; ``linear_wgmma_tf32``,
+phase 17's f32 train step, with the per-step times of its shapes. Last comes
 ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 
@@ -469,6 +488,25 @@ GROUPED_GROUPS = 32
 # |f64|, may be at most this many times the library's kernel's error on
 # the same inputs
 TOL_GROUPED_VS_LIBRARY = 2.0
+# linear path (phase 17): dav2-large's linears at 518x882, 8 frames a step,
+# as (M, N, K) and calls a step: the four of a ViT-L block over 8 x 2332
+# tokens (24 blocks), the head's two kernel=stride transposed convs over
+# 8 x 2331 patches (4x4 of 256 channels, 2x2 of 512)
+LINEAR_SHAPES = {"qkv": ((18656, 3072, 1024), 24),
+                 "proj": ((18656, 1024, 1024), 24),
+                 "fc1": ((18656, 4096, 1024), 24),
+                 "fc2": ((18656, 1024, 4096), 24),
+                 "ct4": ((18648, 4096, 256), 1),
+                 "ct2": ((18648, 2048, 512), 1)}
+LINEAR_DIRECTIONS = ("forward", "grad_input", "grad_weight")
+# the kernel's error against the f64 product on the card, max |d| / max
+# |f64|, may be at most this many times the library's f32 SGEMM's
+TOL_LINEAR_VS_LIBRARY = 2.0
+# a dav2-large train step's GEMMs: 98 linears (96 of the blocks, the two
+# transposed convs), each one forward and two backward
+LINEAR_GEMMS = 294
+LINEAR_SIZE = (518, 882)
+LINEAR_FRAMES = 8
 
 
 def require(cond, what: str) -> None:
@@ -3548,6 +3586,210 @@ def grouped_path(torch, smi, by_path):
             "library_benchmark_ms": totals["library_benchmark_ms"]}
 
 
+def linear_operands(torch, M, N, K, seed, device="cuda"):
+    """x (M, K), w (N, K) over sqrt(K), b (N,) and a cotangent (M, N) of
+    one linear, f32 N(0, 1) from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=device)
+    w = torch.randn((N, K), generator=g, device=device) / K ** 0.5
+    b = torch.randn((N,), generator=g, device=device)
+    ct = torch.randn((M, N), generator=g, device=device)
+    return x, w, b, ct
+
+
+def linear_kernel(tr, direction, x, w, b, ct):
+    """One direction of the linear on the port's kernel (``tr`` is
+    ``ops.transformer``): x w^T + b, ct w or ct^T x."""
+    if direction == "forward":
+        return tr._forward_kernel(x, w, b)
+    if direction == "grad_input":
+        return tr._grad_input_kernel(ct, w)
+    return tr._grad_weight_kernel(ct, x)
+
+
+def linear_library(torch, direction, x, w, b, ct):
+    """The same product on the library's GEMM: cuBLAS's SGEMM for f32
+    operands on the card (the plain version there), the f64 product for
+    f64 ones."""
+    if direction == "forward":
+        return torch.nn.functional.linear(x, w, b)
+    if direction == "grad_input":
+        return torch.mm(ct, w)
+    return torch.mm(ct.t(), x)
+
+
+def linear_split(tr, direction, x, w, ct):
+    """The kernel's split of its B operand alone: the weight's planes
+    (forward), the weight's transposed (grad-input), the narrower of x
+    and ct transposed (grad-weight)."""
+    if direction == "forward":
+        return tr._weight_planes(w)
+    if direction == "grad_input":
+        return tr._transposed_planes(w)
+    return tr._transposed_planes(x if w.shape[0] >= w.shape[1] else ct)
+
+
+def linear_gemm(direction, M, N, K):
+    """(R, C, Kr) of one direction's GEMM on the kernel, R x C outputs over
+    a reduction of Kr, for a linear of x (M, K) and w (N, K): the
+    grad-weight's rows are the wider of N and K."""
+    return {"forward": (M, N, K), "grad_input": (M, K, N),
+            "grad_weight": (max(N, K), min(N, K), M)}[direction]
+
+
+def linear_gap(got, want) -> float:
+    """max |got - want| / max |want|, in f64."""
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def linear_bound(direction, M, N, K):
+    """(bound ms, what bounds it) of one direction of a linear in f32: its
+    2 M N K FLOP over the 3xTF32 peak (PERF.md section 3's rule) against
+    its operands read and its output written once (the forward's bias
+    too) over HBM_BYTES_PER_S."""
+    elems = M * K + N * K + M * N + (N if direction == "forward" else 0)
+    t_flop = 2 * M * N * K / (PEAK_TFLOPS["tf32"] / 3 * 1e12) * 1e3
+    t_bytes = 4 * elems / HBM_BYTES_PER_S * 1e3
+    return (max(t_flop, t_bytes),
+            "operations" if t_flop >= t_bytes else "bytes")
+
+
+def check_linear(torch, tr, M, N, K, direction, seed):
+    """One direction of a linear in f32 (TF32 off): the kernel (twice:
+    bitwise equal, two GEMMs counted) and the library's SGEMM against the
+    f64 product on the card of the same inputs; the device time alone
+    (``queued_ms``) of the kernel's call, of its split alone and of the
+    library's SGEMM; the bound."""
+    ops = linear_operands(torch, M, N, K, seed)
+    want = linear_library(torch, direction, *(t.double() for t in ops))
+    tr.reset_counts()
+    a = linear_kernel(tr, direction, *ops)
+    b = linear_kernel(tr, direction, *ops)
+    gemms = tr.linear_routes["kernel"]
+    lib = linear_library(torch, direction, *ops)
+    torch.cuda.synchronize()
+    err, lib_err = linear_gap(a, want), linear_gap(lib, want)
+    bound_ms, bound_by = linear_bound(direction, M, N, K)
+    r = {"shape": [M, N, K], "direction": direction,
+         "plan": tr._plan(*linear_gemm(direction, M, N, K))._asdict(),
+         "max_rel_err": err, "library_max_rel_err": lib_err,
+         "err_over_library": err / max(lib_err, 1e-30),
+         "bitwise_equal": torch.equal(a, b), "kernel_gemms": gemms,
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    del a, b, lib, want
+    r["ms"], hid = queued_ms(
+        torch, lambda: linear_kernel(tr, direction, *ops), reps=10)
+    r["split_ms"], _ = queued_ms(
+        torch, lambda: linear_split(tr, direction, ops[0], ops[1], ops[3]),
+        reps=10)
+    r["library_ms"], lib_hid = queued_ms(
+        torch, lambda: linear_library(torch, direction, *ops), reps=10)
+    r["queue_hid_host"] = hid and lib_hid
+    r["bound_share"] = bound_ms / r["ms"]
+    r["library_bound_share"] = bound_ms / r["library_ms"]
+    r["faster_than_library"] = r["ms"] < r["library_ms"]
+    r["within_error"] = err <= TOL_LINEAR_VS_LIBRARY * lib_err
+    r["pass"] = (r["within_error"] and r["bitwise_equal"] and gemms == 2
+                 and r["faster_than_library"])
+    return r
+
+
+def linear_step_routes(torch, training, create_depth_model, LossWeights):
+    """``transformer.linear_routes`` and ``launch_counts()``, zeroed just
+    before, over one ``TrainingEngine.train_step`` of dav2-large at full
+    width and depth, seeded and tamed as the benchmark's configuration
+    (the last output conv's weight x 0.05, its bias + 5), on the first
+    TRAIN_BATCH pairs of LINEAR_FRAMES frames at LINEAR_SIZE, in f32 and
+    in bf16, with the step's loss and peak memory."""
+    from consistent_depth_tpu_torch.ops import transformer as tr
+
+    workload = make_train_workload(training, LINEAR_SIZE, LINEAR_FRAMES)
+    require(len(workload["pair_ids"]) >= TRAIN_BATCH,
+            f"{len(workload['pair_ids'])} pairs over {LINEAR_FRAMES} frames")
+    idx = np.arange(TRAIN_BATCH)
+    valid = np.ones(TRAIN_BATCH, np.float32)
+    head = "depth_head.scratch.output_conv2.2."
+    out = {}
+    for precision in ("f32", "bf16"):
+        model = create_depth_model("dav2-large", checkpoint="", seed=0,
+                                   device="cuda")
+        state = model.net.state_dict()
+        with torch.no_grad():
+            state[head + "weight"].mul_(0.05)
+            state[head + "bias"].add_(5.0)
+        engine = training.TrainingEngine(
+            model, training.create_optimizer("Adam", model.learning_rate),
+            LossWeights(lambda_view_baseline=model.lambda_view_baseline,
+                        lambda_reprojection=1.0), precision=precision)
+        data = engine.put_data(workload)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr.reset_counts()
+        m = engine.train_step(data, idx, valid)
+        torch.cuda.synchronize()
+        out[precision] = {"linear_routes": dict(tr.linear_routes),
+                          "launch_counts": list(tr.launch_counts()),
+                          "loss": float(m["loss"]),
+                          "skipped_nan": bool(m["skipped_nan"]),
+                          "peak_bytes": torch.cuda.max_memory_allocated()}
+        del engine, data, model, state, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def linear_path(torch, smi, training, create_depth_model, LossWeights):
+    """Phase 17: the linear's f32 GEMM kernel (``ops/transformer.py``,
+    ``csrc/linear_wgmma_tf32.cu``) in each direction at each of
+    LINEAR_SHAPES (``check_linear``), then the routes of a full-size
+    dav2-large train step in each precision (``linear_step_routes``).
+    Returns the kernel's entry of the ``kernels`` line: its launches, the
+    f32 step's GEMMs; its times, the shapes' summed with their calls a
+    step (the plain version on the card is the library's SGEMM)."""
+    from consistent_depth_tpu_torch.ops import transformer as tr
+
+    rows = []
+    for i, (name, ((M, N, K), per_step)) in enumerate(LINEAR_SHAPES.items()):
+        for j, direction in enumerate(LINEAR_DIRECTIONS):
+            row = check_linear(torch, tr, M, N, K, direction,
+                               seed=5000 + 3 * i + j)
+            row.update(name=name, per_step=per_step)
+            rows.append(row)
+            emit({"phase": "linear", **row, "nvidia_smi": smi})
+        torch.cuda.empty_cache()
+    totals = {key: sum(r["per_step"] * r[key] for r in rows)
+              for key in ("ms", "split_ms", "library_ms", "bound_ms")}
+    failed = [[r["name"], r["direction"]] for r in rows if not r["pass"]]
+    steps = linear_step_routes(torch, training, create_depth_model,
+                               LossWeights)
+    f32, bf16 = steps["f32"], steps["bf16"]
+    routes_ok = (f32["linear_routes"] == {"kernel": LINEAR_GEMMS,
+                                          "library": 0, "plain": 0}
+                 and bf16["linear_routes"] == {"kernel": 0,
+                                               "library": LINEAR_GEMMS,
+                                               "plain": 0})
+    emit({"phase": "linears", "gemms": len(rows), "per_step_ms": totals,
+          "bound_share": totals["bound_ms"] / totals["ms"],
+          "library_bound_share": totals["bound_ms"] / totals["library_ms"],
+          "steps": steps, "failed": failed, "nvidia_smi": smi,
+          "pass": not failed and routes_ok})
+    require(not failed,
+            f"the linear kernel failed {failed}: against f64, bitwise, its "
+            "GEMM count or slower than the library")
+    require(routes_ok, f"a dav2-large train step's linear GEMMs by route: "
+            f"f32 {f32['linear_routes']}, bf16 {bf16['linear_routes']}, "
+            f"expected {LINEAR_GEMMS} on the kernel in f32 and none in bf16")
+    by_path = {"train": f32["linear_routes"]["kernel"]}
+    return {"name": "linear_wgmma_tf32", "route": "cuda",
+            "source": "consistent_depth_tpu_torch/csrc/linear_wgmma_tf32.cu",
+            "replaces": None, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_rel_err": max(r["max_rel_err"] for r in rows),
+            "ms": totals["ms"], "split_ms": totals["split_ms"],
+            "plain_ms": totals["library_ms"],
+            "bound_ms": totals["bound_ms"],
+            "library_ms": totals["library_ms"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -3902,6 +4144,11 @@ def main() -> int:
         "train": midas2_runs["f32"]["grouped_wgrad"],
         "cli": midas2_runs["f32_cli"]["grouped_wgrad"]})
 
+    # -- 17. the linear's GEMM kernel (dav2-large's linears) ---------------
+    torch.cuda.empty_cache()
+    linear_entry = linear_path(torch, smi, training, create_depth_model,
+                               LossWeights)
+
     # the launches by route of each path that runs the kernel. mc's conv
     # entries: one train epoch of phase 9 (179 steps), by precision, the
     # CLI's run of phase 11 (f32), phase 14's mesh ranks' train steps
@@ -3982,6 +4229,7 @@ def main() -> int:
              "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
              "library_ms": None})
     entries.append(grouped_entry)
+    entries.append(linear_entry)
     print(smi, flush=True)
     emit({"kernels": [e for e in entries if e is not None]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,8 @@ rebuilds it. The library is loaded with ``ctypes``; every pointer and the
 stream cross as ``c_void_p``. It links the CUDA runtime only: the one
 driver call, ``cuTensorMapEncodeTiled`` (the TMA tensor maps of the wgmma
 sources, encoded in ``csrc/same_conv_wgmma.cuh``), is looked up at run time
-through ``cudaGetDriverEntryPoint``.
+through ``cudaGetDriverEntryPoint`` (``csrc/linear_wgmma_tf32.cu`` includes
+the same header).
 
 There is no fallback: a missing ``nvcc`` or a failed build raises. Callers
 reach this module only for tensors on a CUDA device.
@@ -59,6 +60,17 @@ CORRELATION_BANDED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
 # i, r, s) strides of dw; the stream
 GROUPED_WGRAD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                           + [ctypes.c_int64] * 10 + [ctypes.c_void_p])
+# linear_wgmma_tf32's arguments: a, its row stride, a_mn; the planes, their
+# row stride; bias, out, out's (row, column) element strides; R, C, Kr,
+# split, blocks; the workspace, the stream
+LINEAR_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_int64]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+# linear_tf32_split's arguments: src, planes, rows, cols, src's (row,
+# column) element strides, the planes' row length, the stream
+LINEAR_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                         + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
 
 
 def _nvcc() -> str:
@@ -157,6 +169,10 @@ def library() -> ctypes.CDLL:
         lib.correlation_generic_forward.restype = i32
         lib.grouped_wgrad.argtypes = GROUPED_WGRAD_ARGTYPES
         lib.grouped_wgrad.restype = i32
+        lib.linear_wgmma_tf32.argtypes = LINEAR_ARGTYPES
+        lib.linear_wgmma_tf32.restype = i32
+        lib.linear_tf32_split.argtypes = LINEAR_SPLIT_ARGTYPES
+        lib.linear_tf32_split.restype = i32
         lib.same_conv_error_string.argtypes = [i32]
         lib.same_conv_error_string.restype = ctypes.c_char_p
         _lib = lib

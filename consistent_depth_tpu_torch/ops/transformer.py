@@ -4,11 +4,25 @@ forward and backward each run in a span of ``..utils.tracing``
 (``linear.forward``, ``linear.backward``, ``attention.forward``,
 ``attention.backward``), on every device.
 
-The JAX package has no transformer, so no TPU kernel is ported here. The
-products run on the library's kernels: a linear is one GEMM forward and two
-(grad-input, grad-weight) backward, cuBLAS on the card, in f32 with TF32 off
-as the port's other f32 products (the engine and the server set the
-policy). The attention is the library's memory-efficient kernel on the card
+The JAX package has no transformer, so no TPU kernel is ported here. A
+linear is three GEMMs: the forward x w^T + b, and backward the grad-input
+g w and the grad-weight g^T x. On the card in f32 all three run on the
+port's kernel, ``csrc/linear_wgmma_tf32.cu``: 3xTF32 on ``wgmma`` (f32
+accuracy: the policy of the engine and the server keeps the library's TF32
+off), each operand split into two TF32 planes, one of them beforehand by a
+small kernel (the weight for the forward, by the conv's weight split; the
+weight transposed for the grad-input and, for the grad-weight, the narrower
+of g and x transposed, by the same source's split), the reduction of a
+grad-weight split over blocks and added in a fixed order. :func:`_plan` fixes tiles and split from the GEMM's shape.
+bf16 and f64 on the card stay on the library's GEMMs (cuBLAS; bf16 is on
+the tensor cores there), and a CPU or meta tensor takes the plain
+``torch.mm`` version (:func:`route`). An f32 operand the kernel does not
+take as it lies (inner stride 1, rows a multiple of 4 elements, a 16-byte
+aligned base) is copied inside the span; one whose rows cannot be (a width
+not a multiple of 4) raises. Every launch of a linear's GEMMs, the splits
+and reduces included, runs inside its span.
+
+The attention is the library's memory-efficient kernel on the card
 (``aten._scaled_dot_product_efficient_attention``, which takes f32 and
 bf16) and its flash kernel on the CPU; the forward keeps the kernel's
 logsumexp, so the backward (``..._backward`` of the same kernel) does not
@@ -18,23 +32,44 @@ on autograd's thread, under a name of their own.
 A transposed conv whose kernel equals its stride (DPT's reassemble
 upsamplers, ``models/depth_anything_v2.py``) is one GEMM over the input
 pixels and a pixel shuffle: :func:`conv_transpose_patches` computes it
-through :func:`linear`, so that the linear's span and count cover it too.
+through :func:`linear`, so that the linear's span, counts and kernel cover
+it too.
 
 :data:`counts` counts the calls of each product (forward passes, with or
 without a gradient), on every device; :func:`launch_counts` reads them.
+:data:`linear_routes` counts the linears' GEMMs by route.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..utils import tracing
+from . import _cuda
 
 # calls of :func:`linear` and :func:`attention`
 counts = {"linear": 0, "attention": 0}
+# the linears' GEMMs (forward, grad-input, grad-weight: one each) by route:
+# the port's kernel, the library's GEMM on the card, the plain version
+linear_routes = {"kernel": 0, "library": 0, "plain": 0}
+
+# the kernel's tile (csrc/linear_wgmma_tf32.cu: BM, BN, BK): output rows
+# and columns, and the reduction elements of a stage of its ring
+TILE_ROWS = 128
+TILE_COLS = 128
+STAGE_K = 32
+# an H100 SXM's streaming multiprocessors, one block on each (the kernel's
+# launch bounds); the reduction is split over up to MAX_SPLIT blocks until
+# the units of work fill the last wave of the grid to WAVE_FILL
+SMS = 132
+MAX_SPLIT = 8
+WAVE_FILL = 0.9
 
 
 def launch_counts() -> Tuple[int, int]:
@@ -43,20 +78,185 @@ def launch_counts() -> Tuple[int, int]:
 
 
 def reset_counts() -> None:
-    """Zero :data:`counts`."""
-    for key in counts:
-        counts[key] = 0
+    """Zero :data:`counts` and :data:`linear_routes`."""
+    for table in (counts, linear_routes):
+        for key in table:
+            table[key] = 0
+
+
+def route(dtype: torch.dtype, device_type: str) -> str:
+    """Where a linear's GEMMs of this dtype on this device run: "kernel"
+    (f32 on the card), "library" (any other dtype on the card), "plain"
+    (every other device: ``torch.mm``)."""
+    if device_type != "cuda":
+        return "plain"
+    return "kernel" if dtype == torch.float32 else "library"
+
+
+class Plan(NamedTuple):
+    """How one GEMM of R x C outputs over a reduction of Kr runs on the
+    kernel: tiles of TILE_ROWS x TILE_COLS (rows, columns), k-blocks of
+    STAGE_K, the reduction's split, the persistent grid's blocks and the
+    f32 workspace's elements (the splits' partial sums)."""
+    tiles_r: int
+    tiles_c: int
+    kblocks: int
+    split: int
+    blocks: int
+    workspace: int
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(R: int, C: int, Kr: int) -> Plan:
+    """The smallest split of the reduction (at most MAX_SPLIT, at least one
+    k-block each) whose units (tiles x split) fill the grid's last wave to
+    WAVE_FILL, else the split that fills it best; one block per unit up to
+    SMS."""
+    tiles_r, tiles_c = math.ceil(R / TILE_ROWS), math.ceil(C / TILE_COLS)
+    kblocks = math.ceil(Kr / STAGE_K)
+    tiles = tiles_r * tiles_c
+    split, best = 1, -1.0
+    for s in range(1, min(MAX_SPLIT, kblocks) + 1):
+        units = tiles * s
+        fill = units / (math.ceil(units / SMS) * SMS)
+        if fill > best:
+            split, best = s, fill
+        if fill >= WAVE_FILL:
+            break
+    units = tiles * split
+    return Plan(tiles_r, tiles_c, kblocks, split, min(units, SMS),
+                split * R * C if split > 1 else 0)
+
+
+def _taken(t: torch.Tensor) -> bool:
+    """Whether the kernel reads the 2-D f32 tensor t as it lies: inner
+    stride 1, rows a whole number of 16-byte units, a 16-byte aligned
+    base (TMA's rules)."""
+    return (t.stride(1) == 1 and t.stride(0) % 4 == 0
+            and t.stride(0) >= t.shape[1] and t.data_ptr() % 16 == 0)
+
+
+def _operand(t: torch.Tensor, what: str) -> torch.Tensor:
+    """t as the kernel reads it: itself, or a contiguous copy; raises for
+    rows of a width the kernel cannot read (not a multiple of 4)."""
+    if not _taken(t):
+        t = t.clone(memory_format=torch.contiguous_format)
+        if not _taken(t):
+            raise ValueError(f"linear: the kernel takes no {what} of shape "
+                             f"{tuple(t.shape)} (rows of a multiple of 4 "
+                             f"f32 elements)")
+    return t
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _weight_planes(w: torch.Tensor) -> torch.Tensor:
+    """The weight w (N, K) f32 (any strides, K a multiple of 4) split into
+    TF32 planes (big, small), (2, N, K): the conv's weight split
+    (``csrc/same_conv_wgmma_tf32.cu``) of one tap."""
+    N, K = w.shape
+    planes = torch.empty((2, N, K), dtype=torch.float32, device=w.device)
+    lib = _cuda.library()
+    err = lib.same_conv_tf32_split_weight(
+        w.data_ptr(), planes.data_ptr(), K, N, 1, 0, 0, w.stride(1),
+        w.stride(0), 0, _stream())
+    _cuda.check(lib, err, "same_conv_tf32_split_weight")
+    return planes
+
+
+def _transposed_planes(t: torch.Tensor) -> torch.Tensor:
+    """The 2-D f32 tensor t (rows, cols) (any strides) transposed and split
+    into TF32 planes (big, small), (2, cols, ld), ld the rows rounded up to
+    4 elements."""
+    rows, cols = t.shape
+    ld = -(-rows // 4) * 4
+    planes = torch.empty((2, cols, ld), dtype=torch.float32, device=t.device)
+    lib = _cuda.library()
+    err = lib.linear_tf32_split(t.data_ptr(), planes.data_ptr(), rows, cols,
+                                t.stride(0), t.stride(1), ld, _stream())
+    _cuda.check(lib, err, "linear_tf32_split")
+    return planes
+
+
+def _gemm(a: torch.Tensor, a_mn: bool, planes: torch.Tensor, out: torch.Tensor,
+          out_strides: Tuple[int, int], R: int, C: int, Kr: int,
+          bias: Optional[torch.Tensor] = None) -> None:
+    """out[r, c] = sum_k A[r, k] B[c, k] (+ bias[c]) on the kernel: A is a
+    (R, Kr), or (Kr, R) where ``a_mn``; B the planes (2, C, ld)."""
+    plan = _plan(R, C, Kr)
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=a.device)
+          if plan.split > 1 else None)
+    lib = _cuda.library()
+    err = lib.linear_wgmma_tf32(
+        a.data_ptr(), a.stride(0), int(a_mn), planes.data_ptr(),
+        planes.stride(1), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), *out_strides, R, C, Kr, plan.split, plan.blocks,
+        None if ws is None else ws.data_ptr(), _stream())
+    _cuda.check(lib, err, "linear_wgmma_tf32")
+    linear_routes["kernel"] += 1
+
+
+def _forward_kernel(x: torch.Tensor, w: torch.Tensor,
+                    b: Optional[torch.Tensor]) -> torch.Tensor:
+    """x w^T + b on the kernel, in x's leading shape (an empty product is
+    no GEMM: ``F.linear``)."""
+    N, K = w.shape
+    x2 = x.reshape(-1, K)
+    M = x2.shape[0]
+    if not (M and N and K):
+        return F.linear(x, w, b)
+    x2 = _operand(x2, "input")
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    bias = None if b is None else b.contiguous()
+    _gemm(x2, False, _weight_planes(w), y, (N, 1), M, N, K, bias)
+    return y.view(*x.shape[:-1], N)
+
+
+def _grad_input_kernel(g2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """g w (M, K) of the cotangent g2 (M, N) on the kernel: B is w^T."""
+    N, K = w.shape
+    M = g2.shape[0]
+    if not (M and N and K):
+        return g2.new_zeros((M, K))
+    gx = torch.empty((M, K), dtype=g2.dtype, device=g2.device)
+    _gemm(_operand(g2, "cotangent"), False, _transposed_planes(w), gx,
+          (K, 1), M, K, N)
+    return gx
+
+
+def _grad_weight_kernel(g2: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """g^T x (N, K) of g2 (M, N) and x2 (M, K) on the kernel: the wider of
+    the two is A as it lies (reduction-major), the narrower B, split
+    transposed; with x the wider, the product is (g^T x)^T, stored
+    transposed."""
+    M, N = g2.shape
+    K = x2.shape[1]
+    if not (M and N and K):
+        return g2.new_zeros((N, K))
+    gw = torch.empty((N, K), dtype=g2.dtype, device=g2.device)
+    wide, narrow, strides = (g2, x2, (K, 1)) if N >= K else (x2, g2, (1, K))
+    _gemm(_operand(wide, "operand"), True, _transposed_planes(narrow), gw,
+          strides, wide.shape[1], narrow.shape[1], M)
+    return gw
 
 
 class _Linear(torch.autograd.Function):
     """y = x w^T + b over the last axis of x; grad-input g w, grad-weight
-    g^T x over every row, grad-bias the rows' sum in f32."""
+    g^T x over every row, grad-bias the rows' sum in f32. Each GEMM goes
+    where :func:`route` sends it."""
 
     @staticmethod
     def forward(ctx, x, w, b):
         ctx.save_for_backward(x, w)
         ctx.has_bias = b is not None
         with tracing.span(tracing.LINEAR_FORWARD):
+            where = route(x.dtype, x.device.type)
+            if where == "kernel":
+                with torch.cuda.device(x.device):
+                    return _forward_kernel(x, w, b)
+            linear_routes[where] += 1
             return F.linear(x, w, b)
 
     @staticmethod
@@ -64,11 +264,24 @@ class _Linear(torch.autograd.Function):
         x, w = ctx.saved_tensors
         gx = gw = gb = None
         with tracing.span(tracing.LINEAR_BACKWARD):
+            where = route(g.dtype, g.device.type)
             g2 = g.reshape(-1, g.shape[-1])
             if ctx.needs_input_grad[0]:
-                gx = torch.mm(g2, w).view(x.shape)
+                if where == "kernel":
+                    with torch.cuda.device(g.device):
+                        gx = _grad_input_kernel(g2, w)
+                else:
+                    gx = torch.mm(g2, w)
+                    linear_routes[where] += 1
+                gx = gx.view(x.shape)
             if ctx.needs_input_grad[1]:
-                gw = torch.mm(g2.t(), x.reshape(-1, x.shape[-1]))
+                x2 = x.reshape(-1, x.shape[-1])
+                if where == "kernel":
+                    with torch.cuda.device(g.device):
+                        gw = _grad_weight_kernel(g2, x2)
+                else:
+                    gw = torch.mm(g2.t(), x2)
+                    linear_routes[where] += 1
             if ctx.has_bias and ctx.needs_input_grad[2]:
                 gb = g2.sum(0, dtype=torch.float32).to(g.dtype)
         return gx, gw, gb
