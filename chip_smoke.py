@@ -11,13 +11,12 @@ its plain PyTorch version:
   ``csrc/same_conv_wgmma_tf32.cu`` for f32, 3xTF32, both on wgmma with TMA;
   ``csrc/same_conv_tc.cu`` and ``csrc/same_conv_tf32.cu``, the earlier
   designs on mma.sync, for the reductions loaded by element and the
-  classes they ran faster; ``csrc/same_conv.cu``, the FMA template, for the
-  shapes none of them take);
+  classes they ran faster; a grad-input none of them takes must raise);
 - full FlowNet2 optical flow (C->S->S + SD + fusion) in f32 through
   ``consistent_depth_tpu_torch.flow.runner.TorchFlowBackend`` at the flow
   stage's 448x1024 feed, then the flow stage's masks and visualisation
-  (kernel: ``csrc/correlation.cu``, the banded route; the generic route,
-  for arguments the banded kernel does not take, is checked beside it);
+  (kernel: ``csrc/correlation.cu``, the banded route; its layout copies,
+  and the raise for arguments it does not take, are checked beside it);
 - the ``mc`` fine-tune stage through
   ``consistent_depth_tpu_torch.training``: ``TrainingEngine.train_step``,
   ``train_epoch`` and ``eval_epoch`` on the reference demo workload of
@@ -51,36 +50,34 @@ Phases, each printing one JSON line:
 3. kernels: for every conv shape the main path launches (recorded from one
    batch-8 forward at 224x384), the kernel of the plan's route against
    ``same_conv_reference`` in f32 (TF32 off) and bf16, both times from
-   CUDA events (in f32 also the FMA template's, the design the 3xTF32
-   kernels replaced; in each dtype also the other tensor-core kernel's on
+   CUDA events (in each dtype also the other tensor-core kernel's on
    the same inputs, "tc" beside "wgmma" and "tf32" beside "wgmma_tf32",
    and the wgmma kernel beside the earlier one where it takes the class,
    checked against plain too: f32 within 1e-4, "wgmma_tf32" within 2e-5),
    the class's GFLOP, its bound by route (the larger of
    its operations over the route's peak and its bytes over 3.35 TB/s; f32
-   rows give the 3xTF32 and the FMA bound), TFLOP/s and share of the
+   rows give the 3xTF32 bound too), TFLOP/s and share of the
    bound; where "wgmma_tf32" runs, its weight split against
    ``split_tf32_reference``, bit for bit, both timed; then, untimed,
    ragged cases (1x7x13 k=11 64->16, 2x14x24
-   32->64), the stem's grad-input (2x64x96, which takes the FMA template
-   in both dtypes) and every class of the train phase's 64x96 check, in
-   both directions;
+   32->64), the stem's class (2x64x96, whose grad-input must raise in both
+   dtypes) and every class of the train phase's 64x96 check, in both
+   directions;
 4. serve: two interleaved 224x384 videos of 32 frames plus three 230x380
    frames (the 240x384 bucket) at batch 8 in bf16: shapes, finite depths,
    the kernels' launch counts by route, agreement with an f32 server,
    frames/s; and the f32 path on the card against the same model on the
    CPU;
-5. correlation: the kernel of the route ``flow/correlation.py::_plan``
-   gives against ``correlation_reference`` in f32 at the shape recorded
+5. correlation: the banded kernel against ``correlation_reference`` in
+   f32 at the shape recorded
    from one FlowNet2 forward at 448x1024 (1x56x128x256), at
    2x56x128x256, at 1x72x128x256 (the 576x1024 feed), at a ragged
    1x7x13x64, with max displacement 4, at a ragged 1x28x130x256 and at
-   1x56x96x256, phase 11's 448x768 feed (banded), with stride 1 and with
-   C = 66 (generic); each row with its route, the times from CUDA events
-   and the kernel's device time from events around calls queued behind a
-   sleep kernel; then at 1x56x128x256 the banded kernel with each dy-group
-   size G of ``GROUPS`` and the generic kernel (the first port's design) on
-   the same inputs;
+   1x56x96x256, phase 11's 448x768 feed, and on NHWC views of contiguous
+   NCHW tensors at 1x28x64x64 (two layout copies); each row with its
+   counts, the times from CUDA events and the device time from events
+   around calls queued behind a sleep kernel; with stride 1 and with
+   C = 66 the call must raise;
 6. flow: FlowNet2 on four directed pairs of 448x1024 frames: shapes,
    finite flow, one correlation launch per pair, all on the banded route,
    agreement with the same
@@ -93,8 +90,8 @@ Phases, each printing one JSON line:
    train step sends through ``same_conv_grad_input``, the kernel of the
    plan's route against ``same_conv_grad_input_reference`` in f32 (TF32
    off) and bf16, its time, the plain version's and cuDNN's dgrad's from
-   CUDA events (f32: the FMA template's too; both: the other tensor-core
-   kernel's), and the numbers of phase 3;
+   CUDA events (and the other tensor-core kernel's), and the numbers of
+   phase 3;
 8. train: the workload resident on the card; 68 forward and 67 grad-input
    launches per step, by the routes the plan gives (bf16: 60 and 60 on
    "wgmma"; on "tc" the stem's forward and the merged heads' grad-input,
@@ -300,11 +297,11 @@ PEAK_TFLOPS = {"bf16": 989.0, "tf32": 495.0, "f32": 67.0}
 HBM_BYTES_PER_S = 3.35e12
 # each conv route's peak and its operations per FLOP of the conv: the
 # 3xTF32 kernel does three TF32 products for each product
-ROUTE_PEAK = {"tc": ("bf16", 1), "tf32": ("tf32", 3), "fma": ("f32", 1),
-              "wgmma": ("bf16", 1), "wgmma_tf32": ("tf32", 3)}
+ROUTE_PEAK = {"tc": ("bf16", 1), "tf32": ("tf32", 3), "wgmma": ("bf16", 1),
+              "wgmma_tf32": ("tf32", 3)}
 CONV_SOURCES = {r: f"consistent_depth_tpu_torch/csrc/{f}" for r, f in (
     ("tc", "same_conv_tc.cu"), ("tf32", "same_conv_tf32.cu"),
-    ("fma", "same_conv.cu"), ("wgmma", "same_conv_wgmma.cu"),
+    ("wgmma", "same_conv_wgmma.cu"),
     ("wgmma_tf32", "same_conv_wgmma_tf32.cu"))}
 # each dtype's two tensor-core routes, each timed beside the other on the
 # classes both take
@@ -328,17 +325,21 @@ TOL_CORR = 1e-5
 QUEUE_SLEEP_CYCLES = 20_000_000
 QUEUE_MAX_HOST_S = 0.008
 QUEUE_TRIES = 4
-# (name, (B, H, W, C), max_displacement, stride, route); the first is
-# checked against the shape recorded from the FlowNet2 forward of phase 6,
-# CLI_CORR_CASE against those of phase 11
+# (name, (B, H, W, C), max_displacement, stride, want): "banded" on the
+# flow path's NHWC views of channels_last activations, "copy" on NHWC views
+# of contiguous NCHW tensors (channel stride H W: the kernel copies each
+# input first), "raises" for arguments the kernel does not take; the first
+# is checked against the shape recorded from the FlowNet2 forward of
+# phase 6, CLI_CORR_CASE against those of phase 11
 CORR_CASES = [
     ("flownet2_448x1024", (1, 56, 128, 256), 20, 2, "banded"),
     ("bench_2x56x128", (2, 56, 128, 256), 20, 2, "banded"),
     ("feed_576x1024", (1, 72, 128, 256), 20, 2, "banded"),
     ("ragged", (1, 7, 13, 64), 20, 2, "banded"),
     ("max_disp_4", (1, 56, 128, 256), 4, 2, "banded"),
-    ("stride_1", (1, 28, 64, 64), 4, 1, "generic"),
-    ("channels_66", (1, 28, 64, 66), 20, 2, "generic"),
+    ("stride_1", (1, 28, 64, 64), 4, 1, "raises"),
+    ("channels_66", (1, 28, 64, 66), 20, 2, "raises"),
+    ("nchw_views", (1, 28, 64, 64), 20, 2, "copy"),
     ("ragged_w130", (1, 28, 130, 256), 20, 2, "banded"),
     ("cli_448x768", (1, 56, 96, 256), 20, 2, "banded"),
 ]
@@ -645,19 +646,6 @@ def other_route(s2d_conv, dt, dtype, route, N, H, W, Ci, Co, k, grad):
     return None
 
 
-@contextmanager
-def fma_route(s2d_conv):
-    """The conv wrappers take the FMA template (csrc/same_conv.cu) for
-    every shape inside the block: the design the tensor-core kernels
-    replaced, timed beside them on the same inputs."""
-    orig = s2d_conv._plan
-    s2d_conv._plan = lambda *args, **kwargs: ("fma", 0, 1)
-    try:
-        yield
-    finally:
-        s2d_conv._plan = orig
-
-
 def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
                timed=True):
     """One conv class in both directions' sense: ``direction`` "forward"
@@ -665,16 +653,18 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
     same_conv_grad_input on the cotangent ``ashape`` (N, H, W, Co); w is
     ``wshape`` (k, k, Ci, Co). In f32 (TF32 off) and bf16: the route the
     plan gives, the error against the plain version on the same rounded
-    inputs, the bound of the route (f32: both the 3xTF32 and the FMA
-    bound), and when ``timed`` the times of the kernel, the plain version,
-    (grad-input) cuDNN's dgrad and (f32) the FMA template from CUDA
-    events. The dtype's other tensor-core kernel runs on the same inputs
-    too (TC_PAIRS; ``bf16["tc"]`` or ``f32["tf32"]`` where the plan gives
-    the wgmma route, ``bf16["wgmma"]`` or ``f32["wgmma_tf32"]`` where it
-    gives the earlier kernel and the wgmma kernel takes the class: its
-    error against plain, which the band holds as well, and when ``timed``
-    its time and share of the bound); ``bf16["tc_ms"]`` and
-    ``f32["tf32_ms"]`` are the earlier kernel's time whatever the route.
+    inputs, the bound of the route (f32: the 3xTF32 bound too), and when
+    ``timed`` the times of the kernel, the plain version and (grad-input)
+    cuDNN's dgrad from CUDA events. The dtype's other tensor-core kernel
+    runs on the same inputs too (TC_PAIRS; ``bf16["tc"]`` or
+    ``f32["tf32"]`` where the plan gives the wgmma route, ``bf16["wgmma"]``
+    or ``f32["wgmma_tf32"]`` where it gives the earlier kernel and the
+    wgmma kernel takes the class: its error against plain, which the band
+    holds as well, and when ``timed`` its time and share of the bound);
+    ``bf16["tc_ms"]`` and ``f32["tf32_ms"]`` are the earlier kernel's time
+    whatever the route. A grad-input into a channel count that is not a
+    whole 16-byte unit of the dtype, which no kernel takes, must raise
+    (``route`` "raises").
     "wgmma_tf32" is held to TOL_WGMMA_TF32, and where it runs, its weight
     split (``split_tf32``) is held bit for bit against
     ``split_tf32_reference`` and, when ``timed``, timed beside it
@@ -696,10 +686,22 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
     row = {"direction": direction, "ct" if grad else "x": list(ashape),
            "w": list(wshape)}
     ok = True
+    gflop = 2 * N * H * W * k * k * Ci * Co / 1e9
     for name, dt, tol in (("f32", torch.float32, TOL_F32),
                           ("bf16", torch.bfloat16, TOL_BF16)):
         ad, wd = a.to(dt), w.to(dt)
         bd = b.to(dt) if b is not None else None
+        if grad and Ci % s2d_conv._unit(dt):
+            before = dict(s2d_conv.route_counts)
+            try:
+                s2d_conv.same_conv_grad_input(ad, wd)
+                raised = False
+            except ValueError:
+                raised = True
+            raised = raised and s2d_conv.route_counts == before
+            row[name] = {"route": "raises", "raised": raised}
+            ok = ok and raised
+            continue
         if grad:
             def kernel():
                 return s2d_conv.same_conv_grad_input(ad, wd)
@@ -754,18 +756,13 @@ def check_conv(torch, s2d_conv, direction, ashape, wshape, has_bias, seed,
              "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
              "bound_ms": bound_ms, "bound_by": bound_by}
         if name == "f32":
-            for key, rt in (("bound_ms_3xtf32", "tf32"),
-                            ("bound_ms_fma", "fma")):
-                r[key] = conv_bound(direction, N, H, W, k, Ci, Co, 4, rt)[1]
+            r["bound_ms_3xtf32"] = conv_bound(direction, N, H, W, k, Ci, Co,
+                                              4, "tf32")[1]
         if timed:
             t = [cuda_ms(torch, plain), cuda_ms(torch, kernel),
                  cuda_ms(torch, kernel), cuda_ms(torch, plain)]
             r["ms"] = (t[1] + t[2]) / 2
             r["plain_ms"] = (t[0] + t[3]) / 2
-            if name == "f32":
-                with fma_route(s2d_conv):
-                    r["fma_ms"] = (cuda_ms(torch, kernel)
-                                   + cuda_ms(torch, kernel)) / 2
             r["library_ms"] = (r["plain_ms"] if library is plain else
                                (cuda_ms(torch, library)
                                 + cuda_ms(torch, library)) / 2)
@@ -824,15 +821,15 @@ def check_weight_split(torch, s2d_conv, w, grad, timed):
 
 
 # the timed numbers of a class that add up over classes; f32 rows carry
-# the FMA template's time, the "tf32" kernel's and both bounds as well,
-# bf16 rows the "tc" kernel's time
-SUMMED = ("ms", "plain_ms", "library_ms", "bound_ms", "fma_ms",
-          "bound_ms_3xtf32", "bound_ms_fma", "tc_ms", "tf32_ms")
+# the "tf32" kernel's time and the 3xTF32 bound as well, bf16 rows the
+# "tc" kernel's time
+SUMMED = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_3xtf32",
+          "tc_ms", "tf32_ms")
 
 
 def conv_totals(rows, count_key):
     """Per-dtype sums over classes times their counts: ms, plain, library
-    and bound ms (f32: the FMA template's ms and both bounds too), GFLOP,
+    and bound ms (f32: the 3xTF32 bound too), GFLOP,
     the achieved TFLOP/s and the share of the bound."""
     totals = {}
     for dt in ("f32", "bf16"):
@@ -863,8 +860,8 @@ def conv_entry(name, replaces, launches, rows, count_key, dt, route):
     class of ``rows`` in ``dt``: the times and bounds of the classes it ran
     on, summed with their counts (ms, the plain version's, the library
     call's: cuDNN's fprop for the forward, whose plain version it is, and
-    its dgrad for the grad-input; f32: the FMA template's ms and both
-    bounds), the largest error against plain. Each dtype's two tensor-core
+    its dgrad for the grad-input; f32: the 3xTF32 bound), the largest
+    error against plain. Each dtype's two tensor-core
     kernels (TC_PAIRS) each run on every class that either takes (the other
     timed beside the plan's); ``launches`` are the plan's."""
     mine = [(r, v) for r in rows
@@ -920,7 +917,8 @@ def expected_routes(s2d_conv, classes, dtype, grad_input):
 
 def check_added_cases(torch, s2d_conv, create_depth_model):
     """The ragged cases, the stem's class (whose grad-input, into 3
-    channels, takes the FMA template in both dtypes), and every forward and
+    channels, no kernel takes: it must raise in both dtypes), and every
+    forward and
     grad-input class of the train phase's card-against-CPU check (4 frames
     at 64x96), in f32 and bf16 against plain with the bands of phases 3
     and 7 (untimed)."""
@@ -995,34 +993,43 @@ def correlation_bound(B, H, W, C, r, stride):
 
 
 def check_correlation(torch, corr, name, shape, max_disp, stride, seed,
-                      group=None, route=None):
-    """One correlation case: error against the plain version, its route and
-    the times (plain and kernel by CUDA events around back-to-back calls,
-    the kernel's device time by :func:`queued_ms`), from inputs with the strides the flow path gives them (NHWC
-    views of channels_last NCHW activations). By default the call goes
-    through ``corr.correlation`` as the flow path's does; ``group`` names
-    the banded kernel's G and ``route="generic"`` launches the generic
-    kernel on arguments the banded one takes."""
+                      want):
+    """One correlation case of CORR_CASES through ``corr.correlation``, as
+    the flow path's calls go, on NHWC views of channels_last NCHW
+    activations (``want`` "copy": of contiguous NCHW tensors). "raises":
+    the call must raise and count nothing. Otherwise the error against the
+    plain version, the counts it took (a launch, and for "copy" two layout
+    copies) and the times (plain and kernel by CUDA events around
+    back-to-back calls, the kernel's device time by :func:`queued_ms`)."""
     B, H, W, C = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
-    f1, f2 = (torch.randn((B, C, H, W), generator=g, device="cuda").to(
-        memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        for _ in range(2))
-    r = max_disp // stride
-    plan = (corr.Plan("generic") if route == "generic" else corr._plan(
-        f1.shape, r, stride, f1.stride(), f2.stride(),
-        (f1.data_ptr(), f2.data_ptr()), group=group))
-    if group is None and route is None:
-        def run():
-            return corr.correlation(f1, f2, max_disp, stride)
-    else:
-        def run():
-            return corr._launch(f1, f2, r, stride, plan)
-    ref = corr.correlation_reference(f1, f2, max_disp, stride)
+    f1, f2 = (torch.randn((B, C, H, W), generator=g, device="cuda")
+              for _ in range(2))
+    if want != "copy":
+        f1, f2 = (f.to(memory_format=torch.channels_last) for f in (f1, f2))
+    f1, f2 = f1.permute(0, 2, 3, 1), f2.permute(0, 2, 3, 1)
+    row = {"case": name, "shape": list(shape), "max_displacement": max_disp,
+           "stride": stride, "want": want}
     before = dict(corr.route_counts)
+    if want == "raises":
+        try:
+            corr.correlation(f1, f2, max_disp, stride)
+            raised = False
+        except ValueError:
+            raised = True
+        return {**row, "raised": raised,
+                "pass": raised and corr.route_counts == before}
+    r = max_disp // stride
+
+    def run():
+        return corr.correlation(f1, f2, max_disp, stride)
+    ref = corr.correlation_reference(f1, f2, max_disp, stride)
     got = run()
     torch.cuda.synchronize()
-    took = [k for k, v in corr.route_counts.items() if v != before[k]]
+    took = {k: v - before[k] for k, v in corr.route_counts.items()
+            if v != before[k]}
+    want_took = {"banded": 1, **({"layout_copies": 2} if want == "copy"
+                                 else {})}
     err = (got - ref).abs().max().item()
     rel = err / max(ref.abs().max().item(), 1e-30)
     t = [cuda_ms(torch, lambda: corr.correlation_reference(
@@ -1032,9 +1039,7 @@ def check_correlation(torch, corr, name, shape, max_disp, stride, seed,
              f1, f2, max_disp, stride))]
     kernel_ms, hidden = queued_ms(torch, run)
     gflop, bound_ms, bound_by = correlation_bound(B, H, W, C, r, stride)
-    return {"case": name, "shape": list(shape), "max_displacement": max_disp,
-            "stride": stride, "route": plan.route, "group": plan.group,
-            "took": took, "out": list(got.shape), "max_abs_err": err,
+    return {**row, "took": took, "out": list(got.shape), "max_abs_err": err,
             "max_rel_err": rel, "tol_rel": TOL_CORR,
             "ms": kernel_ms, "queue_hid_host": hidden,
             "event_ms": [t[1], t[2]],
@@ -1042,7 +1047,7 @@ def check_correlation(torch, corr, name, shape, max_disp, stride, seed,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / kernel_ms,
             "pass": (math.isfinite(rel) and rel <= TOL_CORR
-                     and took == [plan.route])}
+                     and took == want_took)}
 
 
 def record_correlation_shapes(torch, corr, backend, frames):
@@ -1913,8 +1918,6 @@ def _driver_checks(torch, smi, training, s2d_conv, image_io, torch_import,
     require(full == ["full_0001", "full_0002"], f"full states {full}")
     require(tuple(launches) == want_first,
             f"driver launches {launches}, expected {want_first}")
-    require(routes["forward_fma"] == 0 and routes["grad_input_fma"] == 0,
-            f"driver routes {routes}")
     require(resumed["resumed_at_epoch_2"] and len(ft2.epoch_seconds) == 1
             and full2 == ["full_0001", "full_0002", "full_0003"]
             and len(evals2) == n_eval + 1
@@ -2331,7 +2334,8 @@ def _cli_checks(torch, smi, mods, s2d_conv, corr, per_forward, init_sd,
     require(pth_ok and final_finite, "CLI checkpoints or final depth")
     require(cpu_err < TOL_CPU_REF, f"CLI initial depth card vs CPU {cpu_err}")
     require(corr_launches == len(flownet)
-            and corr_routes == {"banded": len(flownet), "generic": 0},
+            and corr_routes == {"banded": len(flownet),
+                                "layout_copies": 0},
             f"CLI correlation launches {corr_routes}, expected "
             f"{len(flownet)} banded")
     require(corr_calls == [cli_corr_shape] * len(flownet),
@@ -3873,16 +3877,18 @@ def main() -> int:
     emit({"phase": "conv_cases", "cases": len(added),
           "routes": Counter(f"{r['direction']}_{r[dt]['route']}"
                             for r in added for dt in ("f32", "bf16")),
-          "max_rel_err": {dt: max(r[dt]["max_rel_err"] for r in added)
+          "max_rel_err": {dt: max(r[dt]["max_rel_err"] for r in added
+                                  if r[dt]["route"] != "raises")
                           for dt in ("f32", "bf16")},
           "tol_rel": {"f32": TOL_F32, "bf16": TOL_BF16},
           "failed": [r for r in added if not r["pass"]],
           "pass": all(r["pass"] for r in added)})
     require(all(r["pass"] for r in added),
             "kernel disagrees with plain on an added case")
-    require(all(any(r[dt]["route"] == "fma" for r in added)
+    require(all(any(r[dt]["route"] == "raises" for r in added)
                 for dt in ("f32", "bf16")),
-            "no added case took the FMA template in both dtypes")
+            "no added case checked a grad-input that must raise in both "
+            "dtypes")
 
     # -- 4. the main path: serving ----------------------------------------
     rng = np.random.default_rng(0)
@@ -3964,38 +3970,24 @@ def main() -> int:
                                seed=0, device="cuda")
     recorded = record_correlation_shapes(torch, corr, backend, frames[:2])
     corr_rows = []
-    for i, (name, shape, md, st, route) in enumerate(CORR_CASES):
-        row = check_correlation(torch, corr, name, shape, md, st, seed=i)
-        row["expected_route"] = route
-        row["pass"] = row["pass"] and row["route"] == route
+    for i, (name, shape, md, st, want) in enumerate(CORR_CASES):
+        row = check_correlation(torch, corr, name, shape, md, st, seed=i,
+                                want=want)
         corr_rows.append(row)
         emit({"phase": "correlation", **row, "nvidia_smi": smi})
     main_row = corr_rows[0]
-    # the banded kernel with each G, and the generic kernel, on the main
-    # case's inputs (its seed)
-    name, shape, md, st, _ = CORR_CASES[0]
-    sweep = [check_correlation(torch, corr, f"{name}_G{G}", shape, md, st,
-                               seed=0, group=G) for G in corr.GROUPS]
-    generic_row = check_correlation(torch, corr, f"{name}_generic", shape,
-                                    md, st, seed=0, route="generic")
-    for row in (*sweep, generic_row):
-        emit({"phase": "correlation_variant", **row, "nvidia_smi": smi})
-    corr_rows += [*sweep, generic_row]
     emit({"phase": "correlations", "recorded_per_forward": [
         list(r) for r in recorded],
-        "routes": Counter(r["route"] for r in corr_rows),
-        "group_ms": {r["group"]: r["ms"] for r in sweep},
-        "fastest_group": min(sweep, key=lambda r: r["ms"])["group"],
-        "default_group": corr.DEFAULT_GROUP,
-        "generic_ms": generic_row["ms"],
-        "banded_vs_generic": generic_row["ms"] / main_row["ms"],
+        "wants": Counter(r["want"] for r in corr_rows),
         "host_not_hidden": [r["case"] for r in corr_rows
-                            if not r["queue_hid_host"]],
+                            if r["want"] != "raises"
+                            and not r["queue_hid_host"]],
         "nvidia_smi": smi, "pass": all(r["pass"] for r in corr_rows)})
     require(recorded == [(CORR_CASES[0][1], 20, 2)],
             f"FlowNet2 at {FLOW_SIZE} made correlation calls {recorded}")
     require(all(r["pass"] for r in corr_rows),
-            "correlation kernel disagrees with plain or took another route")
+            "correlation kernel disagrees with plain, counted otherwise or "
+            "did not raise")
 
     # -- 6. the flow path: FlowNet2 at 448x1024, masks, visualisation -----
     backend.compute_pair(frames[0], frames[1])        # warm-up
@@ -4079,7 +4071,8 @@ def main() -> int:
     require(flow_launches == len(FLOW_PAIRS),
             f"{flow_launches} correlation launches for {len(FLOW_PAIRS)} "
             "pairs")
-    require(flow_routes == {"banded": len(FLOW_PAIRS), "generic": 0},
+    require(flow_routes == {"banded": len(FLOW_PAIRS),
+                            "layout_copies": 0},
             f"FlowNet2's correlation took routes {flow_routes}")
     require(flow_conv_launches == 0, "FlowNet2 launched same_conv")
     require(plain_err < TOL_FLOW, f"flow with kernel vs plain {plain_err}")
@@ -4158,8 +4151,7 @@ def main() -> int:
     # precision) and CLI run (f32) of phases 12-13, with the times of its
     # own classes per batch-8 forward or per step. One entry per route that
     # ran on a class of the path: the plan's routes, and in bf16 the "tc"
-    # kernel timed beside "wgmma" (the FMA template, for the shapes the
-    # tensor-core kernels do not take, has no class at present)
+    # kernel timed beside "wgmma"
     conv_tpu = "consistent_depth_tpu/ops/s2d_conv.py:168"
     vjp_tpu = "consistent_depth_tpu/models/layers.py:321"
     def mc_runs(dt, key):
@@ -4184,8 +4176,7 @@ def main() -> int:
         for dt in ("bf16", "f32"):
             for route in s2d_conv.ROUTES:
                 suffix = path + ("" if dt == "bf16" else "_f32") + (
-                    f"_{route}" if route in ("fma", "wgmma", "wgmma_tf32")
-                    else "")
+                    f"_{route}" if route in ("wgmma", "wgmma_tf32") else "")
                 for name, key, rows_of, count_key, replaces in (
                         ("same_conv", "forward_", fwd_rows, fwd_key,
                          conv_tpu),
@@ -4211,23 +4202,20 @@ def main() -> int:
                                    conv_tpu, by_path,
                                    [(r, r[fwd_key]) for r in fwd_rows]
                                    + [(r, r[bwd_key]) for r in bwd_rows]))
-    # the correlation's two routes: the banded kernel at the main path's
-    # shape, and the generic kernel on the same inputs (it has no main-path
-    # launches); no one PyTorch call computes a cost volume
-    for name, route, row in (("correlation", "banded", main_row),
-                             ("correlation_generic", "generic", generic_row)):
-        by_path = {"flow": flow_routes[route],
-                   "cli": cli["correlation_routes"][route]}
-        entries.append(
-            {"name": name, "route": "cuda", "kernel_route": route,
-             "source": "consistent_depth_tpu_torch/csrc/correlation.cu",
-             "replaces": "consistent_depth_tpu/flow/correlation.py:116",
-             "launches": sum(by_path.values()), "launches_by_path": by_path,
-             "max_abs_err": max(r["max_abs_err"] for r in corr_rows
-                                if r["route"] == route),
-             "ms": row["ms"], "plain_ms": row["plain_ms"],
-             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-             "library_ms": None})
+    # the correlation's banded kernel at the main path's shape; no one
+    # PyTorch call computes a cost volume
+    by_path = {"flow": flow_routes["banded"],
+               "cli": cli["correlation_routes"]["banded"]}
+    entries.append(
+        {"name": "correlation", "route": "cuda", "kernel_route": "banded",
+         "source": "consistent_depth_tpu_torch/csrc/correlation.cu",
+         "replaces": "consistent_depth_tpu/flow/correlation.py:116",
+         "launches": sum(by_path.values()), "launches_by_path": by_path,
+         "max_abs_err": max(r["max_abs_err"] for r in corr_rows
+                            if r["want"] != "raises"),
+         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+         "library_ms": None})
     entries.append(grouped_entry)
     entries.append(linear_entry)
     print(smi, flush=True)

@@ -12,8 +12,7 @@ on the card unless the caller asks for the CPU. Ported so far:
   ``csrc/same_conv_wgmma.cu`` and ``csrc/same_conv_wgmma_tf32.cu``, bf16
   and f32 (3xTF32) on wgmma, ``csrc/same_conv_tc.cu`` and
   ``csrc/same_conv_tf32.cu`` on mma.sync for the classes those do not take
-  or run slower, and ``csrc/same_conv.cu`` on the FMA pipes for the shapes
-  none of them take);
+  or run slower);
 - the native flow path: FlowNet2 (``flow``), whose FlowNetC cost volume
   runs through a hand-written CUDA kernel (``flow.correlation``,
   ``csrc/correlation.cu``), and the flow stage (``pipeline.flow_stage``);

@@ -3,57 +3,46 @@
 // Replaces the TPU kernel consistent_depth_tpu/flow/correlation.py
 // (_corr_kernel, launched by correlation_pallas at :116). That kernel DMAs a
 // row band of a zero-padded copy of f2, with a max-displacement halo, into
-// VMEM once per 8-row band and computes all D*D planes from it. Both kernels
-// here compute the same function directly:
+// VMEM once per 8-row band and computes all D*D planes from it. The kernel
+// here computes the same function directly:
 //
 //   out[b,y,x,(dy+r)*D + (dx+r)] =
-//       (1/C) * sum_c f1[b,y,x,c] * f2[b, y + s*dy, x + s*dx, c]
+//       (1/C) * sum_c f1[b,y,x,c] * f2[b, y + 2*dy, x + 2*dx, c]
 //
 // for |dy|, |dx| <= r, D = 2r+1, with f2 read as zero outside the image, in
 // f32 with f32 accumulation. No padded copy of f2 is made and no shape has
-// to divide a tile: out-of-image reads and ragged tiles are masked.
-//
-// Two routes, fixed by the arguments before launch (flow/correlation.py,
-// _plan):
-//   - "banded", correlation_banded_forward: stride 2, r in {2, 10}, C a
-//     multiple of 4, unit channel stride, 16-byte aligned pixels. FlowNetC
-//     (r = 10) takes it.
-//   - "generic", correlation_generic_forward: any other stride, r or
-//     layout. This is the first port's kernel, unchanged.
+// to divide a tile: out-of-image reads and ragged tiles are masked. It
+// takes stride 2, r in {2, 10} and C a multiple of 4 (flow/correlation.py,
+// _plan; FlowNetC's call, r = 10), and reads inputs with a unit channel
+// stride and 16-byte aligned pixels (the wrapper copies any other input
+// first, _aligned).
 //
 // What bounds it on the card: the FMA pipes. At FlowNet2's 1x56x128x256
-// with r = 10, s = 2 it does 1.6 GFLOP against 27 MB of compulsory device
-// memory traffic (12.6 MB written, 7.3 MB read per input): 24 us on the f32
-// FMA pipes, 8 us at the memory's bandwidth. What held the generic kernel
-// back, and what the banded kernel does about each:
+// with r = 10 it does 1.6 GFLOP against 27 MB of compulsory device memory
+// traffic (12.6 MB written, 7.3 MB read per input): 24 us on the f32 FMA
+// pipes, 8 us at the memory's bandwidth. The design:
 //
-//   1. Shared loads per FMA. Generic: per channel a lane does 1 f1 load
-//      and 3 f2 loads for 3 FMAs; an SM serves one 128-byte wavefront per
-//      clock and issues four warp-FMAs per clock, so it is capped near 3/16
-//      of FMA peak. Banded: a register tile. Lane (p = lane >> 4,
+//   1. A register tile, for few shared loads per FMA. Lane (p = lane >> 4,
 //      g = lane & 15) owns the four columns x_k = x0 + p + 2(4g + k),
 //      k = 0..3, and all D displacement slots j, in acc[4][D] (84 values at
 //      r = 10). Slot j reads f2 column x_k + 2(j - r) = x0 - 2r + p + 2q
 //      with q = 4g + k + j, so per 4-channel quad a lane loads 4 f1 and
 //      D + 3 f2 float4 values for 4*D dot4s: 28 LDS.128 for 84 dot4s
-//      (336 FMAs) at r = 10. Shared-memory traffic is then 112
+//      (336 FMAs) at r = 10. An SM serves one 128-byte wavefront per clock
+//      and issues four warp-FMAs per clock; shared-memory traffic is 112
 //      wavefront-clocks against 84 FMA-clocks per quad and warp, so the
 //      kernel is bound by shared memory at about 75% of FMA peak.
-//   2. f1 re-read for every dy. Generic: one block per (b, y, 32-column
-//      tile, dy) stages its own f1 tile, 21 times per row. Banded: a block
-//      is (128-column tile, row y, b x dy-group) with G warps, one per dy of
-//      the group (dyi = group*G + warp); the G warps share one staged f1
-//      chunk, so f1 is read ceil(D/G) times.
-//   3. No overlap. Generic: each chunk goes load -> shared -> barrier ->
-//      FMAs -> barrier with nothing in flight. Banded: a two-stage ring of
-//      CK = 16 channels filled by 16-byte cp.async.cg with zero-fill (columns
-//      outside [0, W), quads at or past C): chunk n+1 is in flight while
-//      chunk n is computed.
-//   4. Narrow output runs. Generic: 84-byte runs at a 1764-byte pixel
-//      stride through a shared staging tile. Banded: each lane writes its
-//      D results of column x_k straight from registers to
-//      out[b, y, x_k, dyi*D .. dyi*D + D-1], and the G warps of a block fill
-//      G*D adjacent floats of each pixel.
+//   2. f1 shared across dy. A block is (128-column tile, row y, b x
+//      dy-group) with G = 7 warps, one per dy of the group
+//      (dyi = group*G + warp); the G warps share one staged f1 chunk, so f1
+//      is read ceil(D/G) times. G = 7 ran faster than 1 and 3 at FlowNet2's
+//      shape on the card (PERF.md).
+//   3. Overlap. A two-stage ring of CK = 16 channels filled by 16-byte
+//      cp.async.cg with zero-fill (columns outside [0, W), quads at or past
+//      C): chunk n+1 is in flight while chunk n is computed.
+//   4. Wide output runs. Each lane writes its D results of column x_k
+//      straight from registers to out[b, y, x_k, dyi*D .. dyi*D + D-1], and
+//      the G warps of a block fill G*D adjacent floats of each pixel.
 //
 // Banded shared layout, in float4 units of 4 consecutive channels (u
 // indexes the quads of a chunk, p the column parity):
@@ -70,19 +59,17 @@
 // [0, H), joins every barrier and copies its share of f1, but issues no f2
 // copies and no FMAs; it writes zeros (nothing for dyi >= D).
 // Shared bytes per block: 2 stages x 16 ch x 4 B x (128 + G*2*(64 + 2r)),
-// 37,888 / 80,896 / 166,912 B at r = 10 for G = 1 / 3 / 7.
+// 166,912 B at r = 10.
 // Tensor cores are left out: f32 accuracy at 1e-5 would need 3xTF32, and
 // the banded product wastes about half of each MMA tile.
 //
-// The kernels allocate nothing, launch on the caller's stream and do not
-// synchronise. The C entries return cudaGetLastError() after the launch.
+// The kernel allocates nothing, launches on the caller's stream and does
+// not synchronise. The C entry returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-// ---- banded route ----------------------------------------------------------
 
 constexpr int TW = 128;        // output columns per block
 constexpr int CK = 16;         // channels per staged chunk
@@ -269,132 +256,17 @@ cudaError_t launch_banded(const float* f1, const float* f2, float* out, int B,
   return cudaGetLastError();
 }
 
-// ---- generic route ---------------------------------------------------------
-//
-// One block per (b, y, 32-column tile, dy): it stages the f1 row tile and the
-// one f2 row y + s*dy it needs, with its +-r*s column halo, in shared memory
-// in chunks of 32 channels, loaded with the channel index fastest. Lane l of
-// warp w owns column x0 + l and displacements dx_i = w + 7k, k < 3. The
-// block's 32 x D results for its dy are staged in shared memory and written
-// as D contiguous floats per pixel; a dy whose f2 row lies outside the image
-// writes zeros and loads nothing.
-
-constexpr int TILE_X = 32;              // output columns per block (lanes)
-constexpr int WARPS = 7;                // thread rows
-constexpr int NACC = 3;                 // displacements per thread
-constexpr int SLOTS = WARPS * NACC;     // dx values per block: 21
-constexpr int CHUNK = 32;               // channels staged per pass
-constexpr int NTHREADS = TILE_X * WARPS;
-constexpr int S1_LD = TILE_X + 1;       // odd row stride of the f1 tile
-constexpr size_t STATIC_SMEM = TILE_X * SLOTS * sizeof(float);
-constexpr size_t MAX_SMEM = 48 * 1024;
-
-__host__ __device__ inline int s2_ld(int reach) {
-  return (TILE_X + 2 * reach) | 1;      // odd row stride of the f2 row
-}
-
-__host__ __device__ inline size_t dynamic_smem(int reach) {
-  return static_cast<size_t>(CHUNK) * (S1_LD + s2_ld(reach)) * sizeof(float);
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-correlation_generic_kernel(const float* __restrict__ f1,
-                           const float* __restrict__ f2,
-                           float* __restrict__ out, int H, int W, int C,
-                           int r, int stride, int groups, int64_t f1n,
-                           int64_t f1h, int64_t f1w, int64_t f1c, int64_t f2n,
-                           int64_t f2h, int64_t f2w, int64_t f2c) {
-  extern __shared__ float smem[];
-  __shared__ float s_out[TILE_X * SLOTS];  // [x][slot]
-
-  const int D = 2 * r + 1;
-  const int reach = r * stride;
-  const int span = TILE_X + 2 * reach;
-  const int ld2 = s2_ld(reach);
-  float* s1 = smem;                        // [CHUNK][S1_LD]
-  float* s2 = smem + CHUNK * S1_LD;        // [CHUNK][ld2]
-
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int tid = warp * TILE_X + lane;
-  const int x0 = blockIdx.x * TILE_X;
-  const int y = blockIdx.y;
-  const int g = blockIdx.z % groups;
-  const int dyi = (blockIdx.z / groups) % D;
-  const int b = blockIdx.z / groups / D;
-  const int dx0 = g * SLOTS;               // first displacement index
-  const int nslots = min(SLOTS, D - dx0);
-  const int nx = min(TILE_X, W - x0);
-  const int y2 = y + (dyi - r) * stride;
-
-  float acc[NACC];
-#pragma unroll
-  for (int k = 0; k < NACC; ++k) acc[k] = 0.f;
-
-  if (y2 >= 0 && y2 < H) {                 // uniform over the block
-    const float* f1row = f1 + b * f1n + y * f1h;
-    const float* f2row = f2 + b * f2n + y2 * f2h;
-    for (int c0 = 0; c0 < C; c0 += CHUNK) {
-      const int nc = min(CHUNK, C - c0);
-      __syncthreads();                     // the previous chunk's reads are done
-      for (int i = tid; i < CHUNK * TILE_X; i += NTHREADS) {
-        const int c = i % CHUNK;
-        const int xx = i / CHUNK;
-        float v = 0.f;
-        if (c < nc && xx < nx)
-          v = __ldg(f1row + (x0 + xx) * f1w + (c0 + c) * f1c);
-        s1[c * S1_LD + xx] = v;
-      }
-      for (int i = tid; i < CHUNK * span; i += NTHREADS) {
-        const int c = i % CHUNK;
-        const int col = i / CHUNK;
-        const int gx = x0 - reach + col;
-        float v = 0.f;
-        if (c < nc && gx >= 0 && gx < W)
-          v = __ldg(f2row + gx * f2w + (c0 + c) * f2c);
-        s2[c * ld2 + col] = v;
-      }
-      __syncthreads();
-      for (int c = 0; c < nc; ++c) {
-        const float a = s1[c * S1_LD + lane];
-        const float* row = s2 + c * ld2 + lane;
-#pragma unroll
-        for (int k = 0; k < NACC; ++k) {
-          const int j = warp + k * WARPS;
-          if (j < nslots) acc[k] = fmaf(a, row[(dx0 + j) * stride], acc[k]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < NACC; ++k) {
-    const int j = warp + k * WARPS;
-    if (j < nslots) s_out[lane * SLOTS + j] = acc[k] / static_cast<float>(C);
-  }
-  __syncthreads();
-  const int64_t D2 = static_cast<int64_t>(D) * D;
-  float* base = out + ((static_cast<int64_t>(b) * H + y) * W + x0) * D2 +
-                dyi * D + dx0;
-  for (int i = tid; i < nx * nslots; i += NTHREADS) {
-    const int xx = i / nslots;
-    const int j = i % nslots;
-    base[xx * D2 + j] = s_out[xx * SLOTS + j];
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// The banded route. f1, f2: (B, H, W, C) float32 with unit channel stride
+// The banded kernel. f1, f2: (B, H, W, C) float32 with unit channel stride
 // and element strides f{1,2}s_{n,h,w}, each a multiple of 4, and 16-byte
 // aligned base addresses; C a multiple of 4; out: (B, H, W, D*D) float32,
-// contiguous, D = 2r+1; the displacement step is 2. ``group`` is G, the dy
-// values per block. (r, group) must be one of {2, 10} x {1, 3, 7}.
-// Returns a cudaError_t value; 0 means launched.
+// contiguous, D = 2r+1; the displacement step is 2; r is 2 or 10. Returns a
+// cudaError_t value; 0 means launched.
 int correlation_banded_forward(const void* f1, const void* f2, void* out,
-                               int B, int H, int W, int C, int r, int group,
+                               int B, int H, int W, int C, int r,
                                int64_t f1s_n, int64_t f1s_h, int64_t f1s_w,
                                int64_t f2s_n, int64_t f2s_h, int64_t f2s_w,
                                void* stream) {
@@ -408,45 +280,13 @@ int correlation_banded_forward(const void* f1, const void* f2, void* out,
   float* o = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CDTT_BANDED(RR, GG)                                                  \
-  if (r == RR && group == GG)                                                \
+  if (r == RR)                                                               \
     return launch_banded<RR, GG>(a, c, o, B, H, W, C, f1s_n, f1s_h, f1s_w,   \
                                  f2s_n, f2s_h, f2s_w, s);
-  CDTT_BANDED(10, 1)
-  CDTT_BANDED(10, 3)
   CDTT_BANDED(10, 7)
-  CDTT_BANDED(2, 1)
-  CDTT_BANDED(2, 3)
   CDTT_BANDED(2, 7)
 #undef CDTT_BANDED
   return cudaErrorInvalidValue;
-}
-
-// The generic route. f1, f2: (B, H, W, C) float32 with element strides
-// f{1,2}s_{n,h,w,c}; out: (B, H, W, D*D) float32, contiguous, D = 2r+1. The
-// displacement step is ``stride`` pixels, so the reach is r*stride (at most
-// 148 so that the staged rows fit 48 KB of shared memory). Returns a
-// cudaError_t value; 0 means launched.
-int correlation_generic_forward(const void* f1, const void* f2, void* out,
-                                int B, int H, int W, int C, int r, int stride,
-                                int64_t f1s_n, int64_t f1s_h, int64_t f1s_w,
-                                int64_t f1s_c, int64_t f2s_n, int64_t f2s_h,
-                                int64_t f2s_w, int64_t f2s_c, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || r < 0 || stride < 1 ||
-      H > 65535)
-    return cudaErrorInvalidValue;
-  const int D = 2 * r + 1;
-  const int groups = (D + SLOTS - 1) / SLOTS;
-  const int64_t z = static_cast<int64_t>(B) * D * groups;
-  const size_t smem = dynamic_smem(r * stride);
-  if (z > 65535 || smem + STATIC_SMEM > MAX_SMEM) return cudaErrorInvalidValue;
-  const dim3 grid((W + TILE_X - 1) / TILE_X, H, static_cast<unsigned>(z));
-  const dim3 block(TILE_X, WARPS);
-  correlation_generic_kernel<<<grid, block, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(f1), static_cast<const float*>(f2),
-      static_cast<float*>(out), H, W, C, r, stride, groups, f1s_n, f1s_h,
-      f1s_w, f1s_c, f2s_n, f2s_h, f2s_w, f2s_c);
-  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -6,8 +6,8 @@
 //
 // What is bf16's own:
 //   - mma.sync.m16n8k16 bf16 x bf16 -> f32. Products of bf16 are exact in
-//     f32 and the sums stay in f32, so the result is the FMA template's up
-//     to summation order;
+//     f32 and the sums stay in f32, so the result is an f32 conv's of the
+//     same bf16 inputs up to summation order;
 //   - a step is 16 reduction channels; the forward's B fragments come from
 //     its [tap][o][16 i] weight stage by ldmatrix, the grad-input's from
 //     its [tap][16 o][i] stage by ldmatrix.trans, which transposes 16-bit

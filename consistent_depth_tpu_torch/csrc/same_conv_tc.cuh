@@ -13,7 +13,7 @@
 // which is the same conv of the cotangent with the flipped,
 // channel-swapped weight. A grad-input into a number of channels that is
 // not a whole number of 16-byte units (the stem's 3, which training never
-// needs) goes to the FMA template in same_conv.cu instead.
+// needs) goes to the plain version (ops/s2d_conv.py) instead.
 //
 //   out[n,y,x,o] = bias[o] + sum_{r,c,i} x[n,y+r-p,x+c-p,i] w[r,c,i,o]
 //

@@ -2,8 +2,7 @@
 // cores (sm_90a) in 3xTF32: the f32 instantiations of the implicit-GEMM
 // conv of same_conv_tc.cuh, which holds the design and replaces the TPU
 // kernel consistent_depth_tpu/ops/s2d_conv.py (_s2d_conv_kernel) in both
-// directions. It takes the place of the FMA template (same_conv.cu) for
-// f32, the fine-tune's default precision.
+// directions, in f32, the fine-tune's default precision.
 //
 // What bounds it on the card: the tensor cores' TF32 rate (495 TFLOP/s
 // dense) over three products per product. A single TF32 product keeps 11
@@ -22,8 +21,8 @@
 // 7e-5 of max |ref| on the card. Each tap's three products of an n tile go
 // into a zeroed partial instead, which the FP32 pipes add to the
 // accumulator, rounding to nearest: 4e-6 at most over the hourglass's
-// classes, as the FMA template (PERF.md). What remains is each partial's
-// own truncation, under one ulp of it.
+// classes (PERF.md). What remains is each partial's own truncation, under
+// one ulp of it.
 //
 // What is f32's own:
 //   - mma.sync.m16n8k8 TF32 x TF32 -> f32. A step is 8 reduction channels,
@@ -256,6 +255,11 @@ int same_conv_tf32_grad_input(const void* ct, const void* w, void* dx,
   return grad_input_entry<float>(ct, w, dx, dtype, N, H, W, Ci, Co, K, cs_n,
                                  cs_h, cs_w, cs_c, ws_r, ws_c, ws_i, ws_o,
                                  tile_h, split, workspace, stream);
+}
+
+// The message of a cudaError_t value that any entry of the library returned.
+const char* same_conv_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -4,60 +4,55 @@
 The JAX package computes it on the TPU with a Pallas kernel that stages a
 row band of a zero-padded f2 with its displacement halo in VMEM
 (``correlation_pallas``). On a CUDA tensor, :func:`correlation` launches
-one of two hand-written kernels of ``csrc/correlation.cu`` instead, by the
-route :func:`_plan` fixes from the arguments before launch:
+the hand-written banded kernel of ``csrc/correlation.cu`` instead: a block
+of BANDED_GROUP warps, one per vertical displacement, shares each staged
+f1 chunk; each lane keeps a 4-column x D-displacement tile of sums in
+registers; chunks of 16 channels are staged by ``cp.async`` in a
+two-stage ring. Out-of-image reads are masked, so it needs no padded copy
+of f2 and no divisibility rule. It takes stride 2, r in BANDED_RADII and C
+a multiple of 4 (:func:`_plan`; FlowNetC's only call), and reads inputs
+with a unit channel stride, pixel strides of whole 16-byte units and
+16-byte aligned bases (FlowNetC's NHWC views of channels_last
+activations); an input laid out otherwise is copied first and the copy
+counted. Other arguments raise on the card.
 
-- ``"banded"`` (stride 2, r in {2, 10}, C a multiple of 4, unit channel
-  stride, 16-byte aligned pixels; FlowNetC's NHWC views of channels_last
-  activations): a block of G warps, one per vertical displacement, shares
-  each staged f1 chunk; each lane keeps a 4-column x D-displacement tile of
-  sums in registers; chunks of 16 channels are staged by ``cp.async`` in a
-  two-stage ring;
-- ``"generic"`` (every other argument): one block per (batch, row,
-  32-column tile, vertical displacement) stages the f1 tile and the one f2
-  row it needs in shared memory.
-
-Both mask out-of-image reads, so neither needs a padded copy of f2 or a
-divisibility rule. Layout is the JAX package's: f1 and f2 NHWC
-``(B, H, W, C)``, output ``(B, H, W, D*D)`` with
-``D = 2 * (max_displacement // stride) + 1``, displacement planes
-dy-major, values averaged over channels. Any strides are accepted for f1
-and f2, so channels_last activations pass in as permuted views without a
-copy.
+Layout is the JAX package's: f1 and f2 NHWC ``(B, H, W, C)``, output
+``(B, H, W, D*D)`` with ``D = 2 * (max_displacement // stride) + 1``,
+displacement planes dy-major, values averaged over channels. Any strides
+are accepted for f1 and f2; channels_last activations pass in as permuted
+views without a copy.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..ops import _cuda
 
-# the generic kernel stages a row of 32 + 2 * reach columns in shared memory
-MAX_REACH = 148
-
-# the banded kernel: its displacement step, the radii and dy-group sizes it
-# is instantiated for, its tile of output columns and channels per stage
+# the banded kernel: its displacement step, the radii it is instantiated
+# for, its dy values per block (G, fixed in the .cu: the fastest of 1, 3 and
+# 7 at FlowNet2's (1, 56, 128, 256), r = 10, on an H100, PERF.md section
+# 6), its tile of output columns and channels per stage
 BANDED_STRIDE = 2
 BANDED_RADII = (2, 10)
-GROUPS = (1, 3, 7)
+BANDED_GROUP = 7
 BANDED_TILE_W = 128
 BANDED_CHUNK = 16
-# dy values per block unless the caller names G: the fastest of GROUPS at
-# FlowNet2's (1, 56, 128, 256), r = 10, on an H100 (PERF.md section 6)
-DEFAULT_GROUP = 7
 
-# the CUDA kernel launches of :func:`correlation` by route
-route_counts = {"banded": 0, "generic": 0}
+# the banded kernel's launches, one per call of :func:`correlation` on a
+# CUDA tensor, and the inputs it copied first because their layout was not
+# one the kernel reads (:func:`_aligned`)
+route_counts = {"banded": 0, "layout_copies": 0}
 
 
 def launch_count() -> int:
-    """The kernel launches of :func:`correlation`, all routes."""
-    return sum(route_counts.values())
+    """The banded kernel's launches."""
+    return route_counts["banded"]
 
 
 def reset_counts() -> None:
@@ -67,44 +62,44 @@ def reset_counts() -> None:
 
 
 class Plan(NamedTuple):
-    """How one call runs: the route, and for ``"banded"`` its dy-group
-    size G, grid (x-tiles, H, B * dy-groups) and dynamic shared bytes."""
-    route: str
-    group: int = 0
-    grid: Optional[Tuple[int, int, int]] = None
-    smem: int = 0
+    """The banded kernel's grid for one call (x-tiles, H, B * dy-groups)
+    and its dynamic shared bytes."""
+    grid: Tuple[int, int, int]
+    smem: int
 
 
-def banded_smem(r: int, group: int) -> int:
+def banded_smem(r: int) -> int:
     """The banded kernel's shared bytes per block: two stages of 16
     channels of the 128-column f1 tile and, per warp, of its f2 row's two
     column parities of 4 * ceil((64 + 2r) / 4) columns each."""
     qq = (64 + 2 * r + 3) // 4
-    return 2 * BANDED_CHUNK * 4 * (BANDED_TILE_W + group * 2 * 4 * qq)
+    return 2 * BANDED_CHUNK * 4 * (BANDED_TILE_W
+                                   + BANDED_GROUP * 2 * 4 * qq)
 
 
-def _plan(shape: Sequence[int], r: int, stride: int,
-          f1_strides: Sequence[int], f2_strides: Sequence[int],
-          data_ptrs: Sequence[int], group: Optional[int] = None) -> Plan:
-    """The route of one call on the card with f1, f2 of ``shape``
-    (B, H, W, C), radius r and step ``stride``, the inputs' element
-    strides and base addresses. ``"banded"`` needs stride 2, r in
-    BANDED_RADII, C a multiple of 4, unit channel strides, pixel strides of
-    whole 16-byte units and 16-byte aligned bases; anything else takes
-    ``"generic"``. ``group`` picks G from GROUPS (default DEFAULT_GROUP)."""
+def _plan(shape: Sequence[int], r: int, stride: int) -> Plan:
+    """The banded kernel's launch for f1, f2 of ``shape`` (B, H, W, C),
+    radius r and step ``stride``; it takes stride 2, r in BANDED_RADII and
+    C a multiple of 4, and anything else raises."""
     B, H, W, C = shape
-    G = DEFAULT_GROUP if group is None else group
-    if G not in GROUPS:
-        raise ValueError(f"correlation: dy group {G} not in {GROUPS}")
-    aligned = all(s[3] == 1 and all(v % 4 == 0 for v in s[:3])
-                  for s in (f1_strides, f2_strides)) and all(
-                      p % 16 == 0 for p in data_ptrs)
-    if (stride != BANDED_STRIDE or r not in BANDED_RADII or C % 4
-            or not aligned):
-        return Plan("generic")
+    if stride != BANDED_STRIDE or r not in BANDED_RADII or C % 4:
+        raise ValueError(
+            f"correlation: the kernel takes stride {BANDED_STRIDE}, a "
+            f"radius in {BANDED_RADII} and C a multiple of 4, not stride "
+            f"{stride}, radius {r}, C {C}")
     D = 2 * r + 1
-    grid = (math.ceil(W / BANDED_TILE_W), H, B * math.ceil(D / G))
-    return Plan("banded", G, grid, banded_smem(r, G))
+    grid = (math.ceil(W / BANDED_TILE_W), H,
+            B * math.ceil(D / BANDED_GROUP))
+    return Plan(grid, banded_smem(r))
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Whether the banded kernel reads the NHWC ``t`` as it lies: a unit
+    channel stride, pixel strides of whole 16-byte units, a 16-byte aligned
+    base."""
+    s = t.stride()
+    return (s[3] == 1 and all(v % 4 == 0 for v in s[:3])
+            and t.data_ptr() % 16 == 0)
 
 
 def correlation_reference(f1: torch.Tensor, f2: torch.Tensor,
@@ -130,8 +125,8 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
                 max_displacement: int = 20, stride: int = 2) -> torch.Tensor:
     """Cost volume of f1 and f2 (B, H, W, C) -> (B, H, W, D*D). A CPU
     tensor takes :func:`correlation_reference`; a CUDA float32 tensor
-    launches the kernel of the route :func:`_plan` gives; anything else
-    raises."""
+    launches the banded kernel on arguments :func:`_plan` takes, copying
+    first an input that is not :func:`_aligned`; anything else raises."""
     if f1.shape != f2.shape or f1.dim() != 4:
         raise ValueError(f"correlation: f1 {tuple(f1.shape)} and f2 "
                          f"{tuple(f2.shape)} must be one (B, H, W, C) shape")
@@ -146,37 +141,26 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
     if f1.dtype != torch.float32 or f2.dtype != torch.float32:
         raise TypeError(f"correlation: the kernel takes float32, not "
                         f"{f1.dtype}/{f2.dtype}")
-    r = max_displacement // stride
-    if r * stride > MAX_REACH:
-        raise ValueError(f"correlation: reach {r * stride} px exceeds the "
-                         f"kernel's {MAX_REACH}")
-    return _launch(f1, f2, r, stride, _plan(
-        f1.shape, r, stride, f1.stride(), f2.stride(),
-        (f1.data_ptr(), f2.data_ptr())))
-
-
-def _launch(f1: torch.Tensor, f2: torch.Tensor, r: int, stride: int,
-            plan: Plan) -> torch.Tensor:
-    """Launch ``plan``'s kernel on checked CUDA float32 inputs; a launch
-    error raises."""
     B, H, W, C = f1.shape
+    r = max_displacement // stride
+    _plan(f1.shape, r, stride)
     D = 2 * r + 1
     out = torch.empty((B, H, W, D * D), dtype=torch.float32,
                       device=f1.device)
     if out.numel() == 0:
         return out
+    if not _aligned(f1):
+        f1 = f1.clone(memory_format=torch.contiguous_format)
+        route_counts["layout_copies"] += 1
+    if not _aligned(f2):
+        f2 = f2.clone(memory_format=torch.contiguous_format)
+        route_counts["layout_copies"] += 1
     lib = _cuda.library()
     with torch.cuda.device(f1.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        ptrs = (f1.data_ptr(), f2.data_ptr(), out.data_ptr())
-        if plan.route == "banded":
-            err = lib.correlation_banded_forward(
-                *ptrs, B, H, W, C, r, plan.group, *f1.stride()[:3],
-                *f2.stride()[:3], stream)
-        else:
-            err = lib.correlation_generic_forward(
-                *ptrs, B, H, W, C, r, stride, *f1.stride(), *f2.stride(),
-                stream)
-    _cuda.check(lib, err, f"correlation ({plan.route})")
-    route_counts[plan.route] += 1
+        err = lib.correlation_banded_forward(
+            f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, H, W, C, r,
+            *f1.stride()[:3], *f2.stride()[:3],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _cuda.check(lib, err, "correlation")
+    route_counts["banded"] += 1
     return out

@@ -51,9 +51,9 @@ ROUTED_GRAD_INPUT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
 SPLIT_WEIGHT_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                          + [ctypes.c_int64] * 4 + [ctypes.c_int]
                          + [ctypes.c_void_p])
-# correlation_banded_forward's arguments: f1, f2, out, B, H, W, C, r, group,
-# the (n, h, w) element strides of f1 and of f2, the stream
-CORRELATION_BANDED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+# correlation_banded_forward's arguments: f1, f2, out, B, H, W, C, r, the
+# (n, h, w) element strides of f1 and of f2, the stream
+CORRELATION_BANDED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                                + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
 # grouped_wgrad's arguments: x, dy, dw, the workspace; N, H, W, C, groups,
 # stride, splits; the (n, h, w) element strides of x and of dy and the (o,
@@ -146,13 +146,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.same_conv_forward.argtypes = (
-            [p, p, p, p] + [i32] * 7 + [i64] * 8 + [p])
-        lib.same_conv_forward.restype = i32
-        lib.same_conv_grad_input.argtypes = (
-            [p, p, p] + [i32] * 7 + [i64] * 8 + [p])
-        lib.same_conv_grad_input.restype = i32
+        i32 = ctypes.c_int
         for route in ROUTED_CONV_ROUTES:
             fwd = getattr(lib, f"same_conv_{route}_forward")
             fwd.argtypes = ROUTED_FORWARD_ARGTYPES
@@ -164,9 +158,6 @@ def library() -> ctypes.CDLL:
         lib.same_conv_tf32_split_weight.restype = i32
         lib.correlation_banded_forward.argtypes = CORRELATION_BANDED_ARGTYPES
         lib.correlation_banded_forward.restype = i32
-        lib.correlation_generic_forward.argtypes = (
-            [p, p, p] + [i32] * 6 + [i64] * 8 + [p])
-        lib.correlation_generic_forward.restype = i32
         lib.grouped_wgrad.argtypes = GROUPED_WGRAD_ARGTYPES
         lib.grouped_wgrad.restype = i32
         lib.linear_wgmma_tf32.argtypes = LINEAR_ARGTYPES

@@ -31,9 +31,11 @@ CUDA kernels compute the conv directly, with no relayout. Its routes:
   ``"tc"`` implicit GEMM in 3xTF32; it keeps the f32 convs whose reduction
   is loaded by element (the stem, the heads' grad-input) and those of 16 or
   fewer output channels, where it ran faster on the card
-  (``WGMMA_TF32_THIN``);
-- ``"fma"``, ``csrc/same_conv.cu``: a direct conv on the FMA pipes, for
-  the shapes the tensor-core kernels do not take.
+  (``WGMMA_TF32_THIN``).
+
+No kernel takes a grad-input into a channel count that is not a whole
+16-byte unit, and on the card such a call raises (the one such class is
+mc's stem, whose input, the images, never needs a gradient).
 
 :func:`_plan` picks the route, the tile and the split of the reduction for
 one call, from the shapes alone. Layouts are the JAX package's: x NHWC
@@ -140,7 +142,7 @@ WGMMA_THIN = 16
 WGMMA_TF32_THIN = 16
 # the routes (module docstring); each dtype's wgmma route, and its
 # tensor-core route for what the wgmma route does not take
-ROUTES = ("tc", "tf32", "fma", "wgmma", "wgmma_tf32")
+ROUTES = ("tc", "tf32", "wgmma", "wgmma_tf32")
 _WGMMA_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "wgmma_tf32"}
 _TC_ROUTE = {torch.bfloat16: "tc", torch.float32: "tf32"}
 # an H100 SXM's streaming multiprocessors; a grid below two blocks per SM
@@ -295,7 +297,7 @@ def _plan(dtype: torch.dtype, N: int, H: int, W: int, Ci: int, Co: int,
     units by element (the stem's 3, the merged heads' 2). A grad-input
     into a number of channels that is not a whole number of 16-byte units,
     8 bf16 or 4 f32 (the kernels copy its weight in units along them),
-    takes the FMA template ("fma", tile and split unused). ``route`` names
+    raises: no kernel takes it. ``route`` names
     a route of the dtype to plan instead (the card's check times the two
     kernels of a dtype on the same inputs).
 
@@ -310,9 +312,11 @@ def _plan(dtype: torch.dtype, N: int, H: int, W: int, Ci: int, Co: int,
     for more steps) are split over blocks, up to MIN_BLOCKS blocks."""
     red, out = (Co, Ci) if grad_input else (Ci, Co)
     wgmma = _WGMMA_ROUTE[dtype]
+    if grad_input and out % _unit(dtype):
+        raise ValueError(f"_plan: no kernel takes a {dtype} grad-input into "
+                         f"{out} channels, not a whole number of 16-byte "
+                         f"units")
     if route is None:
-        if grad_input and out % _unit(dtype):
-            return "fma", 0, 1
         route = (wgmma if _wgmma_takes(dtype, red, out, grad_input)
                  and not _wgmma_slower(dtype, red, out)
                  and wgmma_fits(k, min(TILE_HEIGHTS), red,
@@ -480,6 +484,41 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, x_ch: int,
                              f"{x.device}/{x.dtype})")
 
 
+def _launch(direction: str, a: torch.Tensor, w: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One checked call on a CUDA tensor in ``direction``: "forward" of x =
+    ``a`` (N, H, W, Ci) with w (k, k, Ci, Co) and ``bias``, or
+    "grad_input" of the cotangent ``a`` (N, H, W, Co). Launches the kernel
+    of :func:`_plan`'s route on the caller's stream (a launch error
+    raises) and counts it in :data:`route_counts`."""
+    grad = direction == "grad_input"
+    N, H, W, _ = a.shape
+    k, Ci, Co = w.shape[0], w.shape[2], w.shape[3]
+    shape = (N, H, W, Ci if grad else Co)
+    if math.prod(shape) == 0:
+        return a.new_empty(shape)
+    route, tile_h, split = _plan(a.dtype, N, H, W, Ci, Co, k,
+                                 grad_input=grad)
+    out = a.new_empty(shape)
+    a, w = _tc_operands(a, w, grad)
+    ws = _workspace(route, split, shape, w, a.device)
+    operands = [a.data_ptr(), w.data_ptr()]
+    if not grad:
+        operands.append(bias.data_ptr() if bias is not None else None)
+    lib = _cuda.library()
+    with torch.cuda.device(a.device):
+        err = getattr(lib, f"same_conv_{route}_{direction}")(
+            *operands, out.data_ptr(), _DTYPE_CODES[a.dtype], N, H, W, Ci,
+            Co, k, *a.stride(), *w.stride(), tile_h, split,
+            ws.data_ptr() if ws is not None else None,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _cuda.check(lib, err, "same_conv_grad_input" if grad else "same_conv")
+    route_counts[f"{direction}_{route}"] += 1
+    route_counts["split_reduce"] += split > 1
+    route_counts["weight_split"] += route == "wgmma_tf32"
+    return out
+
+
 def _forward(x: torch.Tensor, w: torch.Tensor,
              bias: Optional[torch.Tensor]) -> torch.Tensor:
     """The conv with no autograd record: on CUDA the kernel of
@@ -489,42 +528,13 @@ def _forward(x: torch.Tensor, w: torch.Tensor,
             return same_conv_reference(x, w, bias)
         if x.device.type != "cuda":
             raise ValueError(f"same_conv: unsupported device {x.device}")
-        N, H, W, Ci = x.shape
-        k, Co = w.shape[0], w.shape[3]
         _check("same_conv", x, w, w.shape[2],
                [bias] if bias is not None else [])
         if bias is not None:
-            if bias.shape != (Co,):
+            if bias.shape != (w.shape[3],):
                 raise ValueError(f"same_conv: bias shape {tuple(bias.shape)}")
             bias = bias.contiguous()
-
-        out = torch.empty((N, H, W, Co), dtype=x.dtype, device=x.device)
-        if out.numel() == 0:
-            return out
-        route, tile_h, split = _plan(x.dtype, N, H, W, Ci, Co, k)
-        lib = _cuda.library()
-        with torch.cuda.device(x.device):
-            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-            if route != "fma":
-                x, w = _tc_operands(x, w, grad_input=False)
-                ws = _workspace(route, split, (N, H, W, Co), w, x.device)
-                err = getattr(lib, f"same_conv_{route}_forward")(
-                    x.data_ptr(), w.data_ptr(),
-                    bias.data_ptr() if bias is not None else None,
-                    out.data_ptr(), _DTYPE_CODES[x.dtype], N, H, W, Ci, Co, k,
-                    *x.stride(), *w.stride(), tile_h, split,
-                    ws.data_ptr() if ws is not None else None, stream)
-            else:
-                err = lib.same_conv_forward(
-                    x.data_ptr(), w.data_ptr(),
-                    bias.data_ptr() if bias is not None else None,
-                    out.data_ptr(), _DTYPE_CODES[x.dtype], N, H, W, Ci, Co, k,
-                    *x.stride(), *w.stride(), stream)
-        _cuda.check(lib, err, "same_conv")
-        route_counts["forward_" + route] += 1
-        route_counts["split_reduce"] += split > 1
-        route_counts["weight_split"] += route == "wgmma_tf32"
-        return out
+        return _launch("forward", x, w, bias)
 
 
 def same_conv_grad_input(ct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -532,44 +542,16 @@ def same_conv_grad_input(ct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     and the forward's weight w (k, k, Ci, Co): (N, H, W, Ci). A CPU tensor
     takes :func:`same_conv_grad_input_reference`; a CUDA tensor launches
     the kernel of :func:`_plan`'s route on the flipped, channel-swapped
-    weight (a strided view, no copy), or raises if the kernel does not
-    take the arguments."""
+    weight (a strided view, no copy), or raises if no kernel takes the
+    arguments."""
     with tracing.span(tracing.KXK_GRAD_INPUT):
         if ct.device.type == "cpu":
             return same_conv_grad_input_reference(ct, w)
         if ct.device.type != "cuda":
             raise ValueError(f"same_conv_grad_input: unsupported device "
                              f"{ct.device}")
-        N, H, W, Co = ct.shape
-        k, Ci = w.shape[0], w.shape[2]
         _check("same_conv_grad_input", ct, w, w.shape[3])
-
-        dx = torch.empty((N, H, W, Ci), dtype=ct.dtype, device=ct.device)
-        if dx.numel() == 0:
-            return dx
-        route, tile_h, split = _plan(ct.dtype, N, H, W, Ci, Co, k,
-                                     grad_input=True)
-        lib = _cuda.library()
-        with torch.cuda.device(ct.device):
-            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-            if route != "fma":
-                ct, w = _tc_operands(ct, w, grad_input=True)
-                ws = _workspace(route, split, (N, H, W, Ci), w, ct.device)
-                err = getattr(lib, f"same_conv_{route}_grad_input")(
-                    ct.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                    _DTYPE_CODES[ct.dtype], N, H, W, Ci, Co, k, *ct.stride(),
-                    *w.stride(), tile_h, split,
-                    ws.data_ptr() if ws is not None else None, stream)
-            else:
-                err = lib.same_conv_grad_input(
-                    ct.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                    _DTYPE_CODES[ct.dtype], N, H, W, Ci, Co, k, *ct.stride(),
-                    *w.stride(), stream)
-        _cuda.check(lib, err, "same_conv_grad_input")
-        route_counts["grad_input_" + route] += 1
-        route_counts["split_reduce"] += split > 1
-        route_counts["weight_split"] += route == "wgmma_tf32"
-        return dx
+        return _launch("grad_input", ct, w)
 
 
 class _SameConv(torch.autograd.Function):

@@ -4,8 +4,8 @@ jnp formulation, its Pallas kernel (interpret mode) and a naive loop.
 Inputs come from a numpy seed and reach both packages as the same values.
 Tolerance: f32, rtol 1e-5 and atol 1e-6 (the band of
 tests/test_correlation.py); the sides differ only in the order of the
-channel sum. The CUDA kernels themselves run only on the card, where
-chip_smoke.py holds them against ``correlation_reference``; here the route
+channel sum. The CUDA kernel itself runs only on the card, where
+chip_smoke.py holds it against ``correlation_reference``; here the route
 plan and a numpy emulation of the banded kernel's index map are tested.
 """
 
@@ -25,6 +25,7 @@ from consistent_depth_tpu.flow.correlation import (correlation as jax_corr,
 from consistent_depth_tpu_torch.flow import correlation as corr
 from consistent_depth_tpu_torch.ops import _cuda
 from test_correlation import _naive
+from test_torch_s2d_conv import _c_entry_argtypes
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -97,8 +98,8 @@ def test_cpu_takes_reference():
 
 def test_counts_reset():
     corr.route_counts["banded"] += 2
-    corr.route_counts["generic"] += 1
-    assert corr.launch_count() >= 3
+    corr.route_counts["layout_copies"] += 1
+    assert corr.launch_count() >= 2
     corr.reset_counts()
     assert corr.launch_count() == 0
     assert set(corr.route_counts.values()) == {0}
@@ -116,60 +117,55 @@ def test_rejects_bad_arguments():
 
 # -- the banded kernel's route plan and index map ----------------------------
 
-def _nhwc_view(shape, channels_last=True):
-    """An NHWC view of an NCHW tensor of (B, C, H, W), as FlowNetC passes
-    its activations (channels_last in memory) or, with ``channels_last``
-    False, a view whose channel stride is not 1."""
+def _nhwc_view(shape, layout="channels_last"):
+    """An NHWC view of (B, H, W, C) as FlowNetC passes its activations (an
+    NCHW tensor channels_last in memory), or laid out as the kernel does
+    not read it: ``"nchw"``, a view whose channel stride is not 1;
+    ``"offset"``, a contiguous tensor whose base is 4 bytes past a 16-byte
+    boundary."""
     B, H, W, C = shape
+    if layout == "offset":
+        return torch.zeros(B * H * W * C + 1)[1:].view(shape)
     t = torch.zeros((B, C, H, W))
-    if channels_last:
+    if layout == "channels_last":
         t = t.contiguous(memory_format=torch.channels_last)
     return t.permute(0, 2, 3, 1)
 
 
-def _plan_of(f1, f2, max_disp, stride, ptrs=None, group=None):
-    ptrs = (f1.data_ptr(), f2.data_ptr()) if ptrs is None else ptrs
-    return corr._plan(f1.shape, max_disp // stride, stride, f1.stride(),
-                      f2.stride(), ptrs, group=group)
-
-
-@pytest.mark.parametrize("shape,max_disp,stride,channels_last,ptrs,route", [
-    ((1, 56, 128, 256), 20, 2, True, None, "banded"),    # FlowNet2's feed
-    ((2, 72, 128, 256), 20, 2, True, None, "banded"),
-    ((1, 56, 128, 256), 4, 2, True, None, "banded"),     # r = 2
-    ((1, 28, 64, 64), 4, 1, True, None, "generic"),      # stride 1
-    ((1, 28, 64, 64), 6, 2, True, None, "generic"),      # r = 3
-    ((1, 8, 16, 6), 20, 2, True, None, "generic"),       # C = 6
-    ((1, 8, 16, 64), 20, 2, False, None, "generic"),     # channel stride
-    ((1, 8, 16, 64), 20, 2, True, (4, 0), "generic"),    # unaligned base
+@pytest.mark.parametrize("shape,max_disp,stride,layout,want", [
+    ((1, 56, 128, 256), 20, 2, "channels_last", "banded"),  # FlowNet2's
+    ((2, 72, 128, 256), 20, 2, "channels_last", "banded"),
+    ((1, 56, 128, 256), 4, 2, "channels_last", "banded"),   # r = 2
+    ((1, 28, 64, 64), 4, 1, "channels_last", "raises"),     # stride 1
+    ((1, 28, 64, 64), 6, 2, "channels_last", "raises"),     # r = 3
+    ((1, 8, 16, 6), 20, 2, "channels_last", "raises"),      # C = 6
+    ((1, 8, 16, 64), 20, 2, "nchw", "copy"),                # channel stride
+    ((1, 8, 16, 64), 20, 2, "offset", "copy"),              # unaligned base
 ])
-def test_plan_routes(shape, max_disp, stride, channels_last, ptrs, route):
-    f1, f2 = _nhwc_view(shape, channels_last), _nhwc_view(shape, channels_last)
-    plan = _plan_of(f1, f2, max_disp, stride, ptrs)
-    assert plan.route == route
-    if route == "banded":
-        assert plan.group == corr.DEFAULT_GROUP
-        assert plan.smem == corr.banded_smem(max_disp // stride, plan.group)
-
-
-def test_plan_rejects_unknown_group():
-    f = _nhwc_view((1, 8, 16, 64))
-    with pytest.raises(ValueError):
-        _plan_of(f, f, 20, 2, group=2)
+def test_plan_routes(shape, max_disp, stride, layout, want):
+    """The kernel takes stride 2, r in BANDED_RADII and C % 4 == 0, and
+    raises on anything else; it reads channels_last views as they lie and
+    takes a copy of an input laid out otherwise."""
+    r = max_disp // stride
+    if want == "raises":
+        with pytest.raises(ValueError, match="the kernel takes"):
+            corr._plan(shape, r, stride)
+        return
+    assert corr._plan(shape, r, stride).smem == corr.banded_smem(r)
+    assert corr._aligned(_nhwc_view(shape, layout)) == (want == "banded")
 
 
 @pytest.mark.parametrize("W", [13, 128, 130])
 @pytest.mark.parametrize("D", [5, 21])
-@pytest.mark.parametrize("G", corr.GROUPS)
-def test_plan_grid_covers_each_row_once(G, D, W):
-    """Blocks (x-tile, y, b * dy-group) with G warps, warp w taking
-    dyi = group * G + w as the kernel does, cover every (x-tile, y, b, dy)
-    exactly once; warps past D do nothing."""
-    B, H, r = 2, 3, (D - 1) // 2
-    f = _nhwc_view((B, H, W, 16))
-    plan = _plan_of(f, f, 2 * r, 2, group=G)
-    gx, gy, gz = plan.grid
-    ngroups = gz // B
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_plan_grid_covers_each_row_once(B, D, W):
+    """Blocks (x-tile, y, b * dy-group) with G = BANDED_GROUP warps, warp w
+    taking dyi = group * G + w as the kernel does, cover every (x-tile, y,
+    b, dy) exactly once, the batch folded into the grid's z; warps past D
+    do nothing."""
+    G, H, r = corr.BANDED_GROUP, 3, (D - 1) // 2
+    gx, gy, gz = corr._plan((B, H, W, 16), r, 2).grid
+    ngroups = math.ceil(D / G)
     assert gz == B * ngroups and gy == H
     seen = [(bx, y, bz // ngroups, (bz % ngroups) * G + w)
             for bx in range(gx) for y in range(gy) for bz in range(gz)
@@ -183,14 +179,14 @@ def test_plan_grid_covers_each_row_once(G, D, W):
 @pytest.mark.parametrize("r", corr.BANDED_RADII)
 def test_banded_shared_bytes_fit(r):
     """Every banded instantiation fits the 227 KB a block may have; at
-    r = 10 the sizes of the kernel's note."""
-    sizes = [corr.banded_smem(r, G) for G in corr.GROUPS]
-    assert all(s <= 227 * 1024 for s in sizes)
+    r = 10 the size of the kernel's note."""
+    size = corr.banded_smem(r)
+    assert size <= 227 * 1024
     if r == 10:
-        assert sizes == [37888, 80896, 166912]
+        assert size == 166912
 
 
-def _emulate_banded(f1, f2, r, G):
+def _emulate_banded(f1, f2, r):
     """numpy emulation of csrc/correlation.cu's banded kernel: the grid of
     ``_plan``, the cp.async copy maps with zero-fill into the s1/s2 layouts
     (sigma, tau) of its note, chunks of 16 channels, the lanes' column and
@@ -204,13 +200,13 @@ def _emulate_banded(f1, f2, r, G):
     the index expressions mirrored here against the .cu's text."""
     B, H, W, C = f1.shape
     D, TW, CK = 2 * r + 1, corr.BANDED_TILE_W, corr.BANDED_CHUNK
+    G = corr.BANDED_GROUP
     NQ = CK // 4
     NQCOL = TW // 2 + 2 * r
     QQ = (NQCOL + 3) // 4
     PLANE = 4 * QQ
-    assert corr.banded_smem(r, G) == 2 * CK * 4 * (TW + G * 2 * PLANE)
-    gx, gy, gz = _plan_of(torch.from_numpy(f1), torch.from_numpy(f2), 2 * r,
-                          2, ptrs=(0, 0), group=G).grid
+    assert corr.banded_smem(r) == 2 * CK * 4 * (TW + G * 2 * PLANE)
+    gx, gy, gz = corr._plan(f1.shape, r, 2).grid
     ngroups = gz // B
     # s1: idx -> quad u and m = (gh, k, p, gl), g = 8 gh + gl
     idx = np.arange(NQ * TW)
@@ -309,8 +305,9 @@ _BANDED_EXPRESSIONS = (
 
 def test_banded_source_matches_emulation():
     """csrc/correlation.cu has the sizes flow/correlation.py plans with,
-    the instantiations BANDED_RADII x GROUPS, and every index expression
-    the emulation above mirrors; a change to one of them fails here."""
+    one instantiation of each of BANDED_RADII at BANDED_GROUP, every index
+    expression the emulation above mirrors, and the parameters of
+    ops/_cuda.py's argtypes; a change to one of them fails here."""
     src = (_cuda.CSRC_DIR / "correlation.cu").read_text()
     flat = " ".join(src.split())
 
@@ -325,9 +322,12 @@ def test_banded_source_matches_emulation():
     assert "S2_PLANE = 4 * QQ;" in flat
     inst = {tuple(map(int, m)) for m in re.findall(
         r"CDTT_BANDED\((\d+), (\d+)\)", src)}
-    assert inst == {(r, G) for r in corr.BANDED_RADII for G in corr.GROUPS}
+    assert inst == {(r, corr.BANDED_GROUP) for r in corr.BANDED_RADII}
     missing = [e for e in _BANDED_EXPRESSIONS if e not in flat]
     assert not missing
+    assert _c_entry_argtypes("correlation.cu",
+                             "correlation_banded_forward") == (
+        _cuda.CORRELATION_BANDED_ARGTYPES)
 
 
 @pytest.mark.parametrize("shape,max_disp,stride", [
@@ -353,16 +353,16 @@ def test_chip_smoke_bound_counts_in_image_products(shape, max_disp, stride):
     assert bound_by in ("operations", "bytes") and bound_ms > 0
 
 
-@pytest.mark.parametrize("shape,r,G", [
-    ((1, 7, 13, 32), 10, 3),      # rows whose f2 row is out of the image
-    ((1, 6, 130, 16), 2, 7),      # ragged W over two tiles, warps past D
-    ((2, 5, 20, 48), 10, 1),      # B = 2, three chunks
-    ((2, 5, 130, 20), 10, 3),     # a chunk tail of one quad
-    ((1, 9, 21, 20), 2, 3),
+@pytest.mark.parametrize("shape,r", [
+    ((1, 7, 13, 32), 10),         # rows whose f2 row is out of the image
+    ((1, 6, 130, 16), 2),         # ragged W over two tiles, warps past D
+    ((2, 5, 20, 48), 10),         # B = 2, three chunks
+    ((2, 5, 130, 20), 10),        # a chunk tail of one quad
+    ((1, 9, 21, 20), 2),
 ])
-def test_banded_index_map_emulation(shape, r, G):
-    f1, f2 = _features(shape, seed=shape[2] + r + G)
-    got = _emulate_banded(f1, f2, r, G)
+def test_banded_index_map_emulation(shape, r):
+    f1, f2 = _features(shape, seed=shape[2] + r)
+    got = _emulate_banded(f1, f2, r)
     ref = corr.correlation_reference(torch.from_numpy(f1),
                                      torch.from_numpy(f2), 2 * r, 2).numpy()
     np.testing.assert_allclose(got, ref, **TOL)

@@ -250,28 +250,40 @@ def test_plan_routes_hourglass_classes(direction, dtype):
 def test_plan_narrow_and_ragged_cases():
     """Narrow reductions take the tensor cores in both dtypes; a grad-input
     into a number of channels that is not a whole number of 16-byte units
-    (8 bf16, 4 f32) takes the FMA template; a one-image ragged case splits
-    up to its steps."""
+    (8 bf16, 4 f32) raises, in the plan and so in the launch helper before
+    it launches or counts anything; a one-image ragged case splits up to
+    its steps."""
     bf16, f32 = torch.bfloat16, torch.float32
     assert s2d_conv._plan(bf16, 8, 224, 384, 3, 128, 7)[0] == "tc"
     assert s2d_conv._plan(bf16, 8, 224, 384, 64, 2, 3,
                           grad_input=True)[0] == "tc"
-    assert s2d_conv._plan(bf16, 8, 224, 384, 3, 128, 7,
-                          grad_input=True)[0] == "fma"
+    with pytest.raises(ValueError, match="no kernel takes"):
+        s2d_conv._plan(bf16, 8, 224, 384, 3, 128, 7, grad_input=True)
     # the heads' forward reduces 64 channels into 2: "tc" ran it faster
     # (WGMMA_THIN)
     assert s2d_conv._plan(bf16, 8, 224, 384, 64, 2, 3)[0] == "tc"
     assert s2d_conv._plan(f32, 8, 224, 384, 3, 128, 7)[0] == "tf32"
     assert s2d_conv._plan(f32, 8, 224, 384, 64, 2, 3,
                           grad_input=True)[0] == "tf32"
-    assert s2d_conv._plan(f32, 8, 224, 384, 3, 128, 7,
-                          grad_input=True) == ("fma", 0, 1)
+    with pytest.raises(ValueError, match="no kernel takes"):
+        s2d_conv._plan(f32, 8, 224, 384, 3, 128, 7, grad_input=True)
     assert s2d_conv._plan(f32, 8, 224, 384, 64, 2, 3)[0] == "tf32"
     # a grad-input into 4 channels is a whole 16-byte unit in f32 only
     assert s2d_conv._plan(f32, 2, 64, 96, 4, 16, 3,
                           grad_input=True)[0] == "tf32"
-    assert s2d_conv._plan(bf16, 2, 64, 96, 4, 16, 3,
-                          grad_input=True)[0] == "fma"
+    with pytest.raises(ValueError, match="no kernel takes"):
+        s2d_conv._plan(bf16, 2, 64, 96, 4, 16, 3, grad_input=True)
+    # nor may a route named by measurement take it
+    with pytest.raises(ValueError, match="no kernel takes"):
+        s2d_conv._plan(f32, 8, 224, 384, 3, 128, 7, grad_input=True,
+                       route="tf32")
+    w = torch.from_numpy(_inputs(7, 3, 16)[1])
+    ct = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 8, 12, 16)).astype(np.float32))
+    before = dict(s2d_conv.route_counts)
+    with pytest.raises(ValueError, match="no kernel takes"):
+        s2d_conv._launch("grad_input", ct, w)
+    assert s2d_conv.route_counts == before
     # 1x7x13, k=11, 64 -> 16: two 4x16 tiles, split up to the steps of
     # the reduction: 44 forward in bf16 (16 channels each) and 11 in the
     # grad-input (the cotangent's 16 channels), 88 in f32 (8 channels
@@ -385,9 +397,9 @@ def test_plan_routes_backbone_classes_bf16(name, direction):
     """Every bf16 conv class of the three backbones at 224x384, batch 8:
     "wgmma" for each but a reduction loaded by element ("tc": mc's stem
     forward, its heads' grad-input), 16 output or reduction channels ("tc":
-    mc's classes that it ran faster on the card, WGMMA_THIN) and a
-    grad-input into 3 channels ("fma": mc's stem, which training never
-    needs); a "wgmma" tile covers the output in blocks that fit its shared
+    mc's classes that it ran faster on the card, WGMMA_THIN); a grad-input
+    into 3 channels (mc's stem, which training never needs) raises; a
+    "wgmma" tile covers the output in blocks that fit its shared
     memory, a split's ranges cover every reduction step once, and the
     blocks reach MIN_BLOCKS."""
     calls = _model_calls(name)
@@ -395,12 +407,15 @@ def test_plan_routes_backbone_classes_bf16(name, direction):
     grad = direction == "grad_input"
     routes = []
     for (N, H, W, Ci), (k, _, _, Co) in calls:
+        if grad and Ci % 8:
+            with pytest.raises(ValueError, match="no kernel takes"):
+                s2d_conv._plan(torch.bfloat16, N, H, W, Ci, Co, k,
+                               grad_input=grad)
+            routes.append("raises")
+            continue
         plan = s2d_conv._plan(torch.bfloat16, N, H, W, Ci, Co, k,
                               grad_input=grad)
         routes.append(plan[0])
-        if plan[0] == "fma":
-            assert grad and Ci % 8 and plan == ("fma", 0, 1)
-            continue
         if plan[0] == "tc":
             red, out = (Co, Ci) if grad else (Ci, Co)
             assert red % 8 or min(red, out) <= s2d_conv.WGMMA_THIN
@@ -410,18 +425,18 @@ def test_plan_routes_backbone_classes_bf16(name, direction):
     else:
         counts = Counter(routes)
         assert counts == ({"tc": 8, "wgmma": 60} if not grad
-                          else {"fma": 1, "tc": 7, "wgmma": 60})
+                          else {"raises": 1, "tc": 7, "wgmma": 60})
 
 
 # the f32 routes per forward and per backward of each backbone at 224x384,
 # batch 8: mc keeps on "tf32" its stem (3 input channels, loaded by
 # element) and the seven classes into 16 or 2 channels (WGMMA_TF32_THIN)
 # forward, its heads' 2-channel cotangent backward, and its stem's
-# grad-input into 3 channels takes "fma"; midas2 and monodepth2 run
+# grad-input into 3 channels raises; midas2 and monodepth2 run
 # "wgmma_tf32" throughout
 F32_ROUTES = {
     ("mc", "forward"): {"tf32": 8, "wgmma_tf32": 60},
-    ("mc", "grad_input"): {"fma": 1, "tf32": 1, "wgmma_tf32": 66},
+    ("mc", "grad_input"): {"raises": 1, "tf32": 1, "wgmma_tf32": 66},
     ("midas2", "forward"): {"wgmma_tf32": 20},
     ("midas2", "grad_input"): {"wgmma_tf32": 20},
     ("monodepth2", "forward"): {"wgmma_tf32": 13},
@@ -436,7 +451,7 @@ def test_plan_routes_backbone_classes_f32(name, direction):
     "wgmma_tf32" for each but a reduction loaded by element ("tf32": mc's
     stem forward, its heads' grad-input), 16 or fewer output channels
     ("tf32": mc's classes that it ran faster on the card,
-    WGMMA_TF32_THIN) and a grad-input into 3 channels ("fma": mc's stem);
+    WGMMA_TF32_THIN); a grad-input into 3 channels (mc's stem) raises;
     a "wgmma_tf32" tile covers the output in blocks that fit its shared
     memory (16 rows only for blocks of up to 32 channels, a chunk of 32
     channels only at k=3 below 16 rows), a split's ranges cover every
@@ -447,12 +462,14 @@ def test_plan_routes_backbone_classes_f32(name, direction):
     grad = direction == "grad_input"
     routes = []
     for (N, H, W, Ci), (k, _, _, Co) in calls:
+        if grad and Ci % 4:
+            with pytest.raises(ValueError, match="no kernel takes"):
+                s2d_conv._plan(f32, N, H, W, Ci, Co, k, grad_input=grad)
+            routes.append("raises")
+            continue
         plan = s2d_conv._plan(f32, N, H, W, Ci, Co, k, grad_input=grad)
         routes.append(plan[0])
         red, out = (Co, Ci) if grad else (Ci, Co)
-        if plan[0] == "fma":
-            assert grad and Ci % 4 and plan == ("fma", 0, 1)
-            continue
         if plan[0] == "tf32":
             assert red % 4 or out <= s2d_conv.WGMMA_TF32_THIN
         else:

@@ -34,7 +34,8 @@ build, check and time it before the whole ``chip_smoke.py``.
 
 With ``--variants``, instead of 3: text-edited copies of the wgmma
 source and of ``same_conv_wgmma.cuh`` (each edit must match exactly once in
-the two), each built with ``same_conv.cu`` into its own library under
+the two), each built with a one-function stub of the library's error
+strings into its own library under
 ``build/conv_wgmma_variants/``, all builds at once, and timed (device time
 alone) in turns on the dtype's variant classes through the same wrapper.
 bf16: ``committed``; ``no_mma`` (the consumers skip the wgmmas: the
@@ -421,10 +422,10 @@ def classes(dt, smi):
                 N, H, W, _ = xs
                 grad = direction == "grad_input"
                 ashape = (N, H, W, Co) if grad else xs
+                if grad and Ci % s2d_conv._unit(dtype):
+                    continue    # no kernel takes it (the stem's input)
                 plan = s2d_conv._plan(dtype, N, H, W, Ci, Co, k,
                                       grad_input=grad)
-                if plan[0] == "fma":
-                    continue
                 a, w, b = inputs(direction, ashape, ws, has_bias, seed,
                                  dtype)
                 seed += 1
@@ -483,6 +484,15 @@ def classes(dt, smi):
     return ok
 
 
+# the library's error strings, which ops/_cuda.py reads every entry's
+# errors through, for a variant library that holds one route's source alone
+ERROR_STRING_STUB = """#include <cuda_runtime.h>
+extern "C" const char* same_conv_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+"""
+
+
 def build_variants(dt):
     """Build every variant library of the dtype at once; {name: path}."""
     source = SOURCES[dt]
@@ -501,9 +511,10 @@ def build_variants(dt):
         d.mkdir(parents=True, exist_ok=True)
         for f, t in files.items():
             (d / f).write_text(t)
+        (d / "error_string.cu").write_text(ERROR_STRING_STUB)
         lib = d / "libvariant.so"
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(lib),
-               str(d / source.name), str(_cuda.CSRC_DIR / "same_conv.cu")]
+               str(d / source.name), str(d / "error_string.cu")]
         procs.append((name, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         paths[name] = lib

@@ -18,7 +18,7 @@ It prints the committed source's registers and spill bytes per banded
 instantiation (``nvcc -Xptxas -v``), then, at FlowNet2's (1, 56, 128, 256)
 with r = 10 on NHWC views of channels_last tensors, each part's device time
 per call (``chip_smoke.queued_ms``: CUDA events around calls queued
-behind a sleep kernel) for every G of ``GROUPS``, in turns
+behind a sleep kernel), in turns
 (committed first and last), one JSON line each. Only ``committed`` computes
 the cost volume; its error against ``correlation_reference`` is printed.
 
@@ -119,21 +119,19 @@ def main():
     order = list(PARTS)
     for name in order + order[::-1]:
         row = {"part": name}
-        for G in corr.GROUPS:
-            def run(fn=fns[name], G=G):
-                err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, H,
-                         W, C, R, G, *f1.stride()[:3], *f2.stride()[:3],
-                         ctypes.c_void_p(
-                             torch.cuda.current_stream().cuda_stream))
-                if err:
-                    raise SystemExit(f"{name} G={G}: CUDA error {err}")
-            run()
-            torch.cuda.synchronize()
-            if name == "committed":
-                row[f"G{G}_max_rel_err"] = ((out - ref).abs().max()
-                                            / ref.abs().max()).item()
-            row[f"G{G}_ms"], row[f"G{G}_queue_hid_host"] = cs.queued_ms(
-                torch, run)
+
+        def run(fn=fns[name]):
+            err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, H, W, C,
+                     R, *f1.stride()[:3], *f2.stride()[:3],
+                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            if err:
+                raise SystemExit(f"{name}: CUDA error {err}")
+        run()
+        torch.cuda.synchronize()
+        if name == "committed":
+            row["max_rel_err"] = ((out - ref).abs().max()
+                                  / ref.abs().max()).item()
+        row["ms"], row["queue_hid_host"] = cs.queued_ms(torch, run)
         print(json.dumps(row), flush=True)
 
 
