@@ -236,6 +236,22 @@ Phases, each printing one JSON line:
    one full-size dav2-large train step of TrainingEngine on 8 frames at
    518x882 (4 pairs): LINEAR_GEMMS a step on the kernel and none on the
    library in f32, none on the kernel in bf16.
+18. attention: the attention's f32 kernel (``ops/transformer.py``,
+   ``csrc/attention_wgmma_tf32.cu``), TF32 off, at dav2-large's
+   ATTENTION_SHAPE (8 frames x 16 heads over 2,332 tokens of 64), at
+   ATTENTION_RAGGED lengths and, at heads of 32, at ATTENTION_NARROW, on q,
+   k and v as the qkv linear's views: O, lse, dq, dk and dv of the kernel
+   and of the library's memory-efficient kernel against the f64 result on
+   the card (the kernel within TOL_ATTENTION_VS_LIBRARY times the library's
+   error, or below ATTENTION_FLOOR_L keys TOL_ATTENTION_FLOOR), two calls
+   bitwise equal but dq (atomic sums,
+   within TOL_ATTENTION_REPEAT_DQ); at dav2-large's shape the device time
+   alone of the kernel's forward and backward calls (splits, D pass and
+   zeroed dQ included) and of the library's (``library_ms``), beside the
+   bounds. Then ``transformer.attention_routes``, zeroed just before, over
+   the same full-size dav2-large train step as phase 17's: 2 x
+   ATTENTION_PER_STEP (forwards and backwards) on the kernel and none on
+   the library in f32, all on the library in bf16.
 
 Then the card's name and power limit as nvidia-smi prints them, a
 ``{"kernels": [...]}`` line, whose launches add up each path's run
@@ -251,7 +267,9 @@ backbone's entries (``same_conv_midas2``, ...) its timed steps and CLI run,
 with the times of its own classes; phase 6 and phase 11 for the
 correlation; ``grouped_wgrad``, phase 12's midas2 f32 timed steps and CLI
 run, with phase 16's per-step times of its classes; ``linear_wgmma_tf32``,
-phase 17's f32 train step, with the per-step times of its shapes. Last comes
+phase 17's f32 train step, with the per-step times of its shapes;
+``attention_wgmma_tf32``, phase 18's f32 train step, with its shape's
+forward and backward times the attentions a step. Last comes
 ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 
@@ -508,6 +526,37 @@ TOL_LINEAR_VS_LIBRARY = 2.0
 LINEAR_GEMMS = 294
 LINEAR_SIZE = (518, 882)
 LINEAR_FRAMES = 8
+# attention path (phase 18): dav2-large's attention, 8 frames x 16 heads
+# over 2,332 tokens of 64 channels, 24 a step; ragged lengths at a small
+# batch
+ATTENTION_HEAD = 64
+ATTENTION_SHAPE = (8, 16, 2332)
+ATTENTION_PER_STEP = 24
+ATTENTION_RAGGED = [(1, 2, 1), (1, 2, 63), (1, 2, 65), (2, 3, 129),
+                    (1, 2, 2332)]
+# the kernel's other head width, 32: the benchmark's small dav2 network (4
+# frames x 2 heads over 46 tokens) and a ragged length over three key tiles
+ATTENTION_NARROW_HEAD = 32
+ATTENTION_NARROW = [(4, 2, 46), (2, 3, 129)]
+# the kernel's error against the f64 result on the card, max |d| / max
+# |f64|, of each of O, lse, dq, dk, dv, may be at most this many times the
+# library's memory-efficient kernel's
+TOL_ATTENTION_VS_LIBRARY = 2.0
+# below ATTENTION_FLOOR_L keys (one key tile), an error below this share of
+# the largest f64 value (8 f32 ulps) is within, whatever the library's:
+# there the library's own error is a few ulps, and twice it is noise (lse
+# 6.0e-7 against 2.1e-7 at one key); from one tile on, twice the library's
+TOL_ATTENTION_FLOOR = 1e-6
+ATTENTION_FLOOR_L = 64
+# where the f64 result is zero throughout (dq and dk over a single key: dS =
+# (dP - D) / 8 with dP = D exactly), the largest |value| of the kernel's: dP
+# and D are one 64-term dot product of N(0, 1) values (|dP| ~ 8, an ulp
+# 9.5e-7) summed two ways, so |dS| is a few ulps over 8 and |dq| that times
+# |k| (below ~4): ~2e-6 (1.4e-6 measured, the library's 7.0e-7)
+TOL_ATTENTION_ZERO = 1e-5
+# dq sums its key tiles by f32 atomic adds in no fixed order: two calls
+# may differ by this much of its largest value (~37 adds of a few ulps)
+TOL_ATTENTION_REPEAT_DQ = 1e-5
 
 
 def require(cond, what: str) -> None:
@@ -3699,8 +3748,8 @@ def check_linear(torch, tr, M, N, K, direction, seed):
 
 
 def linear_step_routes(torch, training, create_depth_model, LossWeights):
-    """``transformer.linear_routes`` and ``launch_counts()``, zeroed just
-    before, over one ``TrainingEngine.train_step`` of dav2-large at full
+    """``transformer.linear_routes``, ``attention_routes`` and
+    ``launch_counts()``, zeroed just before, over one ``TrainingEngine.train_step`` of dav2-large at full
     width and depth, seeded and tamed as the benchmark's configuration
     (the last output conv's weight x 0.05, its bias + 5), on the first
     TRAIN_BATCH pairs of LINEAR_FRAMES frames at LINEAR_SIZE, in f32 and
@@ -3732,6 +3781,7 @@ def linear_step_routes(torch, training, create_depth_model, LossWeights):
         m = engine.train_step(data, idx, valid)
         torch.cuda.synchronize()
         out[precision] = {"linear_routes": dict(tr.linear_routes),
+                          "attention_routes": dict(tr.attention_routes),
                           "launch_counts": list(tr.launch_counts()),
                           "loss": float(m["loss"]),
                           "skipped_nan": bool(m["skipped_nan"]),
@@ -3790,6 +3840,227 @@ def linear_path(torch, smi, training, create_depth_model, LossWeights):
             "max_rel_err": max(r["max_rel_err"] for r in rows),
             "ms": totals["ms"], "split_ms": totals["split_ms"],
             "plain_ms": totals["library_ms"],
+            "bound_ms": totals["bound_ms"],
+            "library_ms": totals["library_ms"]}
+
+
+def attention_operands(torch, B, H, L, seed, device="cuda",
+                       d=ATTENTION_HEAD):
+    """q, k, v (B, H, L, d) as the views of one (B, L, 3, H, d) qkv
+    tensor that ``models/vit.py`` makes, and a cotangent of O as the
+    (B, H, L, d) view of a (B, L, H, d) tensor that the caller's reshape
+    gives back, f32 N(0, 1) from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((B, L, 3, H, d), generator=g, device=device)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    ct = torch.randn((B, L, H, d), generator=g,
+                     device=device).transpose(1, 2)
+    return q, k, v, ct
+
+
+def attention_reference(torch, q, k, v, ct):
+    """(O, lse, dq, dk, dv) in f64, one batch element at a time: S = q k^T
+    / sqrt(d), P = exp(S - lse), O = P v; dP = ct v^T, D = rowsum(P o dP),
+    dS = P (dP - D) / sqrt(d), dq = dS k, dk = dS^T q, dv = P^T ct."""
+    scale = q.shape[-1] ** -0.5
+    outs = []
+    for b in range(q.shape[0]):
+        qd, kd, vd, gd = (t[b].double() for t in (q, k, v, ct))
+        s = qd @ kd.transpose(-1, -2) * scale
+        lse = torch.logsumexp(s, -1)
+        p = torch.exp(s - lse[..., None])
+        del s
+        o = p @ vd
+        dp = gd @ vd.transpose(-1, -2)
+        # D = rowsum(P o dP), which is rowsum(ct o O), and exactly dP's one
+        # value over a single key, where dS is then exactly 0
+        ds = p * (dp - (p * dp).sum(-1)[..., None]) * scale
+        del dp
+        outs.append((o, lse, ds @ kd, ds.transpose(-1, -2) @ qd,
+                     p.transpose(-1, -2) @ gd))
+        del p, ds
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def attention_kernel(tr, q, k, v, ct):
+    """(O, lse, dq, dk, dv) on the port's kernel (``tr`` is
+    ``ops.transformer``)."""
+    o, lse = tr._attention_forward_kernel(q, k, v)
+    return (o, lse) + tr._attention_backward_kernel(ct, q, k, v, o, lse)
+
+
+def attention_library(torch, q, k, v, ct):
+    """(O, lse, dq, dk, dv) on the library's memory-efficient kernel, the
+    one the port ran before (``aten._scaled_dot_product_efficient_attention``
+    and its backward)."""
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    o, lse, seed, offset = eff(q, k, v, None, True)
+    dq, dk, dv, _ = \
+        torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            ct.contiguous(), q, k, v, None, o, lse, seed, offset, 0.0,
+            [True, True, True, False])
+    # its logsumexp is padded to a multiple of 32 rows
+    return o, lse[..., :q.shape[2]], dq, dk, dv
+
+
+def attention_gap(got, want) -> float:
+    """max |got - want| / max |want|, or max |got - want| where want is
+    zero throughout (dq and dk over a single key)."""
+    d = float((got.double() - want).abs().max())
+    m = float(want.abs().max())
+    return d / m if m > 0 else d
+
+
+def attention_bound(direction, BH, L, d):
+    """(bound ms, what bounds it) of one attention in f32: the benchmark's
+    ``roofline.attention_bound`` (4 BH L^2 d FLOP forward, twice that
+    backward, over the 3xTF32 peak; Q, K, V and O, and backward dO and the
+    gradients, once over the memory rate), the bound that
+    ``attention_roofline`` reads, taken from there and not copied."""
+    from benchmark.harness import roofline
+
+    _, seconds, by = roofline.attention_bound(direction, BH, L, L, d, "f32")
+    return seconds * 1e3, by
+
+
+def check_attention(torch, tr, B, H, L, seed, timed=True,
+                    d=ATTENTION_HEAD):
+    """One attention in f32 (TF32 off) at (B, H, L, d): the kernel, twice,
+    and the library's kernel against the f64 result of the same inputs, each
+    of O, lse, dq, dk and dv (``attention_gap``: within twice the library's,
+    or below ATTENTION_FLOOR_L keys TOL_ATTENTION_FLOOR, or
+    TOL_ATTENTION_ZERO where the f64 result is zero); the two calls bitwise
+    equal but dq, which sums by atomic adds, within
+    TOL_ATTENTION_REPEAT_DQ of its largest value. Where ``timed``, the
+    device time alone (``queued_ms``) of the kernel's forward and backward
+    calls and of the library's, and the bounds."""
+    names = ("o", "lse", "dq", "dk", "dv")
+    ops = attention_operands(torch, B, H, L, seed, d=d)
+    want = attention_reference(torch, *ops)
+    tr.reset_counts()
+    first = attention_kernel(tr, *ops)
+    second = attention_kernel(tr, *ops)
+    lib = attention_library(torch, *ops)
+    torch.cuda.synchronize()
+    err = {n: attention_gap(a, w) for n, a, w in zip(names, first, want)}
+    lib_err = {n: attention_gap(a, w) for n, a, w in zip(names, lib, want)}
+    zero = {n: not bool(w.abs().max() > 0) for n, w in zip(names, want)}
+    repeat_dq = attention_gap(second[2], first[2].double())
+    r = {"shape": [B, H, L, d], "max_rel_err": err,
+         "library_max_rel_err": lib_err,
+         "err_over_library": {n: err[n] / max(lib_err[n], 1e-30)
+                              for n in names},
+         "bitwise_equal": {n: torch.equal(a, b) for n, a, b in
+                           zip(names, first, second)},
+         "repeat_dq_gap": repeat_dq,
+         "tol_repeat_dq": TOL_ATTENTION_REPEAT_DQ}
+    r["zero_reference"] = [n for n in names if zero[n]]
+    floor = TOL_ATTENTION_FLOOR if L < ATTENTION_FLOOR_L else 0.0
+    r["within_error"] = all(
+        err[n] <= (TOL_ATTENTION_ZERO if zero[n] else
+                   max(TOL_ATTENTION_VS_LIBRARY * lib_err[n], floor))
+        for n in names)
+    r["repeatable"] = (all(r["bitwise_equal"][n] for n in names if n != "dq")
+                       and repeat_dq <= TOL_ATTENTION_REPEAT_DQ)
+    r["pass"] = r["within_error"] and r["repeatable"]
+    del first, second, lib, want
+    if not timed:
+        return r
+    q, k, v, ct = ops
+    o, lse = tr._attention_forward_kernel(q, k, v)
+    lo, llse, seed_, offset = \
+        torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True)
+    ctc = ct.contiguous()
+    eff_bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+    r["forward_ms"], hid_f = queued_ms(
+        torch, lambda: tr._attention_forward_kernel(q, k, v), reps=5)
+    r["backward_ms"], hid_b = queued_ms(
+        torch, lambda: tr._attention_backward_kernel(ct, q, k, v, o, lse),
+        reps=5)
+    r["library_forward_ms"], lhid_f = queued_ms(
+        torch, lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True), reps=5)
+    r["library_backward_ms"], lhid_b = queued_ms(
+        torch, lambda: eff_bwd(ctc, q, k, v, None, lo, llse, seed_, offset,
+                               0.0, [True, True, True, False]), reps=5)
+    r["queue_hid_host"] = hid_f and hid_b and lhid_f and lhid_b
+    for direction in ("forward", "backward"):
+        bound, by = attention_bound(direction, B * H, L, d)
+        r[f"{direction}_bound_ms"], r[f"{direction}_bound_by"] = bound, by
+        r[f"{direction}_bound_share"] = bound / r[f"{direction}_ms"]
+        r[f"library_{direction}_bound_share"] = (
+            bound / r[f"library_{direction}_ms"])
+    r["faster_than_library"] = (
+        r["forward_ms"] + r["backward_ms"]
+        < r["library_forward_ms"] + r["library_backward_ms"])
+    r["pass"] = r["pass"] and r["faster_than_library"]
+    return r
+
+
+def attention_path(torch, smi, training, create_depth_model, LossWeights):
+    """Phase 18: the attention's f32 kernel (``ops/transformer.py``,
+    ``csrc/attention_wgmma_tf32.cu``) at dav2-large's shape, forward and
+    backward, and at ragged lengths (``check_attention``), then
+    ``transformer.attention_routes`` over a full-size dav2-large train step
+    in each precision (``linear_step_routes``: 48 on the kernel in f32, 48
+    on the library in bf16). Returns the kernel's entry of the ``kernels``
+    line: its launches, the f32 step's forwards and backwards; its times,
+    the shape's forward and backward times the attentions a step (the plain
+    version on the card is the library's kernel)."""
+    from consistent_depth_tpu_torch.ops import transformer as tr
+
+    B, H, L = ATTENTION_SHAPE
+    main_row = check_attention(torch, tr, B, H, L, seed=6000)
+    emit({"phase": "attention", **main_row, "nvidia_smi": smi})
+    rows = [main_row]
+    for i, (b, h, length) in enumerate(ATTENTION_RAGGED):
+        row = check_attention(torch, tr, b, h, length, seed=6001 + i,
+                              timed=False)
+        emit({"phase": "attention", **row, "nvidia_smi": smi})
+        rows.append(row)
+    for i, (b, h, length) in enumerate(ATTENTION_NARROW):
+        row = check_attention(torch, tr, b, h, length, seed=6101 + i,
+                              timed=False, d=ATTENTION_NARROW_HEAD)
+        emit({"phase": "attention", **row, "nvidia_smi": smi})
+        rows.append(row)
+    torch.cuda.empty_cache()
+    per_step = ATTENTION_PER_STEP
+    totals = {"ms": per_step * (main_row["forward_ms"]
+                                + main_row["backward_ms"]),
+              "library_ms": per_step * (main_row["library_forward_ms"]
+                                        + main_row["library_backward_ms"]),
+              "bound_ms": per_step * (main_row["forward_bound_ms"]
+                                      + main_row["backward_bound_ms"])}
+    failed = [r["shape"] for r in rows if not r["pass"]]
+    steps = linear_step_routes(torch, training, create_depth_model,
+                               LossWeights)
+    f32, bf16 = steps["f32"], steps["bf16"]
+    calls = 2 * per_step
+    routes_ok = (f32["attention_routes"] == {"kernel": calls, "library": 0,
+                                             "plain": 0}
+                 and bf16["attention_routes"] == {"kernel": 0,
+                                                  "library": calls,
+                                                  "plain": 0})
+    emit({"phase": "attentions", "per_step_ms": totals,
+          "bound_share": totals["bound_ms"] / totals["ms"],
+          "library_bound_share": totals["bound_ms"] / totals["library_ms"],
+          "steps": steps, "failed": failed, "nvidia_smi": smi,
+          "pass": not failed and routes_ok})
+    require(not failed,
+            f"the attention kernel failed at {failed}: against f64, "
+            "repeated, or slower than the library")
+    require(routes_ok, f"a dav2-large train step's attentions by route: "
+            f"f32 {f32['attention_routes']}, bf16 "
+            f"{bf16['attention_routes']}, expected {calls} on the kernel in "
+            "f32 and none in bf16")
+    by_path = {"train": f32["attention_routes"]["kernel"]}
+    return {"name": "attention_wgmma_tf32", "route": "cuda",
+            "source": "consistent_depth_tpu_torch/csrc/attention_wgmma_tf32.cu",
+            "replaces": None, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_rel_err": max(max(r["max_rel_err"].values()) for r in rows),
+            "ms": totals["ms"], "plain_ms": totals["library_ms"],
             "bound_ms": totals["bound_ms"],
             "library_ms": totals["library_ms"]}
 
@@ -4142,6 +4413,11 @@ def main() -> int:
     linear_entry = linear_path(torch, smi, training, create_depth_model,
                                LossWeights)
 
+    # -- 18. the attention's kernel (dav2-large's attention) ---------------
+    torch.cuda.empty_cache()
+    attention_entry = attention_path(torch, smi, training,
+                                     create_depth_model, LossWeights)
+
     # the launches by route of each path that runs the kernel. mc's conv
     # entries: one train epoch of phase 9 (179 steps), by precision, the
     # CLI's run of phase 11 (f32), phase 14's mesh ranks' train steps
@@ -4218,6 +4494,7 @@ def main() -> int:
          "library_ms": None})
     entries.append(grouped_entry)
     entries.append(linear_entry)
+    entries.append(attention_entry)
     print(smi, flush=True)
     emit({"kernels": [e for e in entries if e is not None]})
     emit({"ok": True, "device": {"platform": "gpu",

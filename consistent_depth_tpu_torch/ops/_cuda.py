@@ -10,8 +10,8 @@ rebuilds it. The library is loaded with ``ctypes``; every pointer and the
 stream cross as ``c_void_p``. It links the CUDA runtime only: the one
 driver call, ``cuTensorMapEncodeTiled`` (the TMA tensor maps of the wgmma
 sources, encoded in ``csrc/same_conv_wgmma.cuh``), is looked up at run time
-through ``cudaGetDriverEntryPoint`` (``csrc/linear_wgmma_tf32.cu`` includes
-the same header).
+through ``cudaGetDriverEntryPoint`` (``csrc/linear_wgmma_tf32.cu`` and
+``csrc/attention_wgmma_tf32.cu`` include the same header).
 
 There is no fallback: a missing ``nvcc`` or a failed build raises. Callers
 reach this module only for tensors on a CUDA device.
@@ -71,6 +71,39 @@ LINEAR_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 # column) element strides, the planes' row length, the stream
 LINEAR_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                          + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
+# attention_tf32_split's arguments: src, its (b, h, l) element strides; B,
+# H, L, the head width d; the K-major and the transposed planes (either
+# NULL), lp, permute; the stream
+ATTENTION_SPLIT_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int64] * 3
+                            + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+                            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+# attention_wgmma_tf32_forward's arguments: q, its (b, h, l) element
+# strides; K's planes, V's transposed planes, out, out's (b, h, l) strides;
+# lse; B, H, L, d, lp; the stream
+ATTENTION_FORWARD_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int64] * 3
+                              + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
+                              + [ctypes.c_void_p] + [ctypes.c_int] * 5
+                              + [ctypes.c_void_p])
+# attention_wgmma_tf32_backward's arguments: q and dO, each with its (b, h,
+# l) element strides; K's and V's planes, K's transposed planes, lse, dsum,
+# dq, dk, dv; B, H, L, d, lp; the stream
+ATTENTION_BACKWARD_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int64] * 3
+                               + [ctypes.c_void_p] + [ctypes.c_int64] * 3
+                               + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                               + [ctypes.c_void_p])
+# attention_rowdot's arguments: o and dO, each with its (b, h, l) element
+# strides; dsum; B, H, L, d; the stream
+ATTENTION_ROWDOT_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int64] * 3
+                             + [ctypes.c_void_p] + [ctypes.c_int64] * 3
+                             + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p])
+
+ATTENTION_ENTRIES = {
+    "attention_tf32_split": ATTENTION_SPLIT_ARGTYPES,
+    "attention_wgmma_tf32_forward": ATTENTION_FORWARD_ARGTYPES,
+    "attention_wgmma_tf32_backward": ATTENTION_BACKWARD_ARGTYPES,
+    "attention_rowdot": ATTENTION_ROWDOT_ARGTYPES,
+}
 
 
 def _nvcc() -> str:
@@ -164,6 +197,9 @@ def library() -> ctypes.CDLL:
         lib.linear_wgmma_tf32.restype = i32
         lib.linear_tf32_split.argtypes = LINEAR_SPLIT_ARGTYPES
         lib.linear_tf32_split.restype = i32
+        for name, argtypes in ATTENTION_ENTRIES.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = i32
         lib.same_conv_error_string.argtypes = [i32]
         lib.same_conv_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -22,12 +22,30 @@ aligned base) is copied inside the span; one whose rows cannot be (a width
 not a multiple of 4) raises. Every launch of a linear's GEMMs, the splits
 and reduces included, runs inside its span.
 
-The attention is the library's memory-efficient kernel on the card
-(``aten._scaled_dot_product_efficient_attention``, which takes f32 and
-bf16) and its flash kernel on the CPU; the forward keeps the kernel's
-logsumexp, so the backward (``..._backward`` of the same kernel) does not
-compute the forward again. The spans put the backward's kernels, which run
-on autograd's thread, under a name of their own.
+The attention in f32 on the card runs on the port's kernel,
+``csrc/attention_wgmma_tf32.cu``, in place of the library's SDPA (its
+memory-efficient kernel, 3xTF32 on ``mma.sync`` at ~17% of the bound): a
+flash attention forward and backward in 3xTF32 on ``wgmma`` with TMA
+loads, whose scores never leave the chip. What bounds it is operations,
+4 B H L^2 d FLOP forward and twice that backward at 165 TFLOP/s (the TF32
+rate over three products a product); its design note says what it does
+about that. It takes q, k and v as they lie (the qkv linear's output, rows
+of 3 x 1024 elements), splits K into TF32 planes and V (forward) or K
+(backward) into transposed planes inside the span, writes O in the (B, L,
+H, d) layout, so that the caller's ``o.transpose(1, 2).reshape`` stays a
+view, and keeps an f32 logsumexp (B, H, L), from which the backward
+recomputes P; it sums dQ by f32 atomic adds, so two backward calls may
+differ in dQ's last bits. It takes heads of 64 (every DINOv2 backbone's)
+and of 32 (the small networks of the tests, on the same tiles with the
+columns past 32 read as zeros, at the operations of 64); another width
+raises (:func:`attention_route`). bf16 and f64 on the
+card stay on the library's memory-efficient kernel
+(``aten._scaled_dot_product_efficient_attention`` and its backward from
+the kept logsumexp), a CPU or meta tensor takes the library's CPU flash
+kernel, the plain version. Every launch, the splits, the D = rowsum(dO o
+O) pass and the zeroed dQ included, runs inside the spans; the spans put
+the backward's kernels, which run on autograd's thread, under a name of
+their own.
 
 A transposed conv whose kernel equals its stride (DPT's reassemble
 upsamplers, ``models/depth_anything_v2.py``) is one GEMM over the input
@@ -37,7 +55,8 @@ it too.
 
 :data:`counts` counts the calls of each product (forward passes, with or
 without a gradient), on every device; :func:`launch_counts` reads them.
-:data:`linear_routes` counts the linears' GEMMs by route.
+:data:`linear_routes` counts the linears' GEMMs by route,
+:data:`attention_routes` each attention's forward and backward by route.
 """
 
 from __future__ import annotations
@@ -58,6 +77,12 @@ counts = {"linear": 0, "attention": 0}
 # the linears' GEMMs (forward, grad-input, grad-weight: one each) by route:
 # the port's kernel, the library's GEMM on the card, the plain version
 linear_routes = {"kernel": 0, "library": 0, "plain": 0}
+# each attention's forward and backward by route, as linear_routes
+attention_routes = {"kernel": 0, "library": 0, "plain": 0}
+# the attention kernel's head widths (csrc/attention_wgmma_tf32.cu: the
+# instances of its kernels' D): every DINOv2 backbone's, and the small
+# networks' of the tests
+HEAD_DIMS = (64, 32)
 
 # the kernel's tile (csrc/linear_wgmma_tf32.cu: BM, BN, BK): output rows
 # and columns, and the reduction elements of a stage of its ring
@@ -78,8 +103,9 @@ def launch_counts() -> Tuple[int, int]:
 
 
 def reset_counts() -> None:
-    """Zero :data:`counts` and :data:`linear_routes`."""
-    for table in (counts, linear_routes):
+    """Zero :data:`counts`, :data:`linear_routes` and
+    :data:`attention_routes`."""
+    for table in (counts, linear_routes, attention_routes):
         for key in table:
             table[key] = 0
 
@@ -295,14 +321,139 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     return _Linear.apply(x, w, b)
 
 
+def attention_route(dtype: torch.dtype, device_type: str,
+                    head_dim: int) -> str:
+    """Where an attention of this dtype on this device with heads of
+    ``head_dim`` runs: "kernel" (f32 on the card), "library" (any other
+    dtype on the card), "plain" (every other device). Raises ValueError for
+    f32 on the card with a head width the kernel does not take."""
+    if device_type != "cuda":
+        return "plain"
+    if dtype != torch.float32:
+        return "library"
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"attention: the f32 kernel takes heads of "
+                         f"{' or '.join(map(str, HEAD_DIMS))}, not "
+                         f"{head_dim}")
+    return "kernel"
+
+
+def _attention_view(t: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """A (B, H, L, d) f32 tensor as the kernel reads it: itself where the
+    head width is contiguous, the other strides (of dimensions longer than
+    one) are whole 16-byte units and the base is 16-byte aligned (TMA's
+    rules; q, k and v as views of the qkv linear's output are), else a
+    contiguous copy; and its (B, H, L) element strides, a dimension of one
+    given the whole tensor's size."""
+    def taken(u):
+        return (u.stride(3) == 1 and u.data_ptr() % 16 == 0
+                and all(u.shape[i] == 1 or (u.stride(i) > 0
+                                            and u.stride(i) % 4 == 0)
+                        for i in range(3)))
+    if not taken(t):
+        t = t.clone(memory_format=torch.contiguous_format)
+    size = max(4, -(-t.numel() // 4) * 4)
+    return t, tuple(t.stride(i) if t.shape[i] > 1 else size
+                    for i in range(3))
+
+
+def _attention_planes(t: torch.Tensor, strides: Tuple[int, ...], lp: int,
+                      rows: bool, cols: bool, permute: bool = False):
+    """t's TF32 planes (``attention_tf32_split``): K-major (2, B H, L, d)
+    where ``rows``, transposed (2, B H, d, lp) where ``cols``, its keys in
+    the order the forward's accumulator gives P where ``permute``."""
+    B, H, L, d = t.shape
+    rp = (torch.empty((2, B * H, L, d), dtype=t.dtype, device=t.device)
+          if rows else None)
+    cp = (torch.empty((2, B * H, d, lp), dtype=t.dtype, device=t.device)
+          if cols else None)
+    lib = _cuda.library()
+    err = lib.attention_tf32_split(
+        t.data_ptr(), *strides, B, H, L, d,
+        None if rp is None else rp.data_ptr(),
+        None if cp is None else cp.data_ptr(), lp, int(permute), _stream())
+    _cuda.check(lib, err, "attention_tf32_split")
+    return rp, cp
+
+
+def _attention_forward_kernel(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor):
+    """(O, lse) of q, k, v (B, H, L, d) f32 on the kernel (d in
+    HEAD_DIMS): O a (B, H, L, d) view of a (B, L, H, d) tensor, lse (B, H, L)
+    f32."""
+    if not (q.dim() == 4 and q.shape == k.shape == v.shape):
+        raise ValueError(f"attention: the kernel takes q, k, v of one (B, "
+                         f"H, L, d) shape, not {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, L, d = q.shape
+    out = torch.empty((B, L, H, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    q, qs = _attention_view(q)
+    k, ks = _attention_view(k)
+    v, vs = _attention_view(v)
+    lp = -(-L // 8) * 8
+    kp, _ = _attention_planes(k, ks, lp, True, False)
+    _, vt = _attention_planes(v, vs, lp, False, True, permute=True)
+    lib = _cuda.library()
+    err = lib.attention_wgmma_tf32_forward(
+        q.data_ptr(), *qs, kp.data_ptr(), vt.data_ptr(), out.data_ptr(),
+        out.stride(0), out.stride(1), out.stride(2), lse.data_ptr(), B, H, L,
+        d, lp, _stream())
+    _cuda.check(lib, err, "attention_wgmma_tf32_forward")
+    return out, lse
+
+
+def _attention_backward_kernel(g: torch.Tensor, q: torch.Tensor,
+                               k: torch.Tensor, v: torch.Tensor,
+                               out: torch.Tensor, lse: torch.Tensor):
+    """(dq, dk, dv), (B, H, L, d) f32, of the cotangent g of O on the
+    kernel, from the forward's O and lse."""
+    B, H, L, d = q.shape
+    dq = torch.zeros((B, H, L, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty_like(dq)
+    dv = torch.empty_like(dq)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    g, gs = _attention_view(g)
+    out, os_ = _attention_view(out)
+    q, qs = _attention_view(q)
+    k, ks = _attention_view(k)
+    v, vs = _attention_view(v)
+    lp = -(-L // 8) * 8
+    lib = _cuda.library()
+    dsum = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    err = lib.attention_rowdot(out.data_ptr(), *os_, g.data_ptr(), *gs,
+                               dsum.data_ptr(), B, H, L, d, _stream())
+    _cuda.check(lib, err, "attention_rowdot")
+    kp, kt = _attention_planes(k, ks, lp, True, True)
+    vp, _ = _attention_planes(v, vs, lp, True, False)
+    err = lib.attention_wgmma_tf32_backward(
+        q.data_ptr(), *qs, g.data_ptr(), *gs, kp.data_ptr(), vp.data_ptr(),
+        kt.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, L, d, lp, _stream())
+    _cuda.check(lib, err, "attention_wgmma_tf32_backward")
+    return dq, dk, dv
+
+
 class _Attention(torch.autograd.Function):
     """softmax(q k^T / sqrt(d)) v of q, k, v (B, heads, L, d), no mask; the
-    forward keeps the kernel's output and logsumexp for its backward."""
+    forward keeps its output and logsumexp for its backward. Forward and
+    backward each go where :func:`attention_route` sends them."""
 
     @staticmethod
     def forward(ctx, q, k, v):
         with tracing.span(tracing.ATTENTION_FORWARD):
-            if q.device.type == "cuda":
+            where = attention_route(q.dtype, q.device.type, q.shape[-1])
+            attention_routes[where] += 1
+            ctx.where = where
+            if where == "kernel":
+                with torch.cuda.device(q.device):
+                    out, lse = _attention_forward_kernel(q, k, v)
+                ctx.save_for_backward(q, k, v, out, lse)
+            elif where == "library":
                 out, lse, seed, offset = \
                     torch.ops.aten._scaled_dot_product_efficient_attention(
                         q, k, v, None, True)
@@ -317,9 +468,15 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         with tracing.span(tracing.ATTENTION_BACKWARD):
+            attention_routes[ctx.where] += 1
+            if ctx.where == "kernel":
+                with torch.cuda.device(g.device):
+                    dq, dk, dv = _attention_backward_kernel(
+                        g, *ctx.saved_tensors)
+                return dq, dk, dv
             if g.stride(-1) != 1:
                 g = g.contiguous()
-            if g.device.type == "cuda":
+            if ctx.where == "library":
                 q, k, v, out, lse, seed, offset = ctx.saved_tensors
                 dq, dk, dv, _ = \
                     torch.ops.aten._scaled_dot_product_efficient_attention_backward(
